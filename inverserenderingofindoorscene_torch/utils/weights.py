@@ -1,0 +1,86 @@
+"""Carry the JAX package's parameters across to the port's modules.
+
+The inverse of the JAX package's ``utils/torch_import.py``: flax param
+trees, given as nested dicts of numpy arrays (``jax.tree.map(np.asarray,
+params)``), become ``state_dict``s of :class:`BRDFNets` / :class:`LightNets`:
+
+  * conv kernels HWIO -> OIHW (transpose (3, 2, 0, 1)), biases as they are;
+  * GroupNorm ``scale`` -> ``weight``;
+  * flax's ``Conv_i``/``GroupNorm_i`` -> the reference names
+    (``conv{i}``/``gn{i}``, ``dconv{i}``/``dgn{i}``/``dconvFinal``,
+    ``preProcess.1/.2/.5/.6``).
+
+Every flax leaf maps to exactly one key, and an unknown layer raises, so
+the result loads with ``load_state_dict(strict=True)``.  numpy only: the
+port stays free of JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_LEAF = {
+    ("Conv", "kernel"): "weight",
+    ("Conv", "bias"): "bias",
+    ("GroupNorm", "scale"): "weight",
+    ("GroupNorm", "bias"): "bias",
+}
+
+
+def _names(first_conv: str, first_gn: str, n: int, final=None) -> dict:
+    """flax layer name -> torch module name for n conv+GN blocks."""
+    names = {}
+    for i in range(n):
+        names[f"Conv_{i}"] = f"{first_conv}{i + 1}"
+        names[f"GroupNorm_{i}"] = f"{first_gn}{i + 1}"
+    if final is not None:
+        names[f"Conv_{n}"] = final
+    return names
+
+
+ENCODER_NAMES = _names("conv", "gn", 6)
+DECODER_NAMES = _names("dconv", "dgn", 6, final="dconvFinal")
+LIGHT_ENCODER_NAMES = {
+    "Conv_0": "preProcess.1",
+    "GroupNorm_0": "preProcess.2",
+    "Conv_1": "preProcess.5",
+    "GroupNorm_1": "preProcess.6",
+    **{f"Conv_{i + 2}": f"conv{i + 1}" for i in range(6)},
+    **{f"GroupNorm_{i + 2}": f"gn{i + 1}" for i in range(6)},
+}
+
+
+def module_state_dict(flax_tree: dict, names: dict, prefix: str = "") -> dict:
+    """One flax module's ``{"params": {layer: {leaf: array}}}`` ->
+    ``{prefix + torch name: tensor}``."""
+    out = {}
+    for layer, leaves in flax_tree["params"].items():
+        base = names[layer]  # KeyError: a layer the port does not have
+        kind = layer.rsplit("_", 1)[0]
+        for leaf, value in leaves.items():
+            arr = np.array(value, dtype=np.float32)
+            if kind == "Conv" and leaf == "kernel":
+                arr = np.transpose(arr, (3, 2, 0, 1))
+            key = f"{prefix}{base}.{_LEAF[(kind, leaf)]}"
+            if key in out:
+                raise ValueError(f"two flax leaves map to {key}")
+            out[key] = torch.from_numpy(np.ascontiguousarray(arr))
+    return out
+
+
+def brdf_state_dict(params: dict) -> dict:
+    """JAX ``BRDFNets`` params -> port ``BRDFNets`` state dict."""
+    sd = module_state_dict(params["encoder"], ENCODER_NAMES, "encoder.")
+    for head in ("albedo", "normal", "rough", "depth"):
+        sd.update(module_state_dict(params[head], DECODER_NAMES, f"{head}."))
+    return sd
+
+
+def light_state_dict(params: dict) -> dict:
+    """JAX ``LightNets`` params -> port ``LightNets`` state dict (either
+    cascade level: the cascade-1 encoder only has a wider ``conv1``)."""
+    sd = module_state_dict(params["encoder"], LIGHT_ENCODER_NAMES, "encoder.")
+    for head in ("axis", "lamb", "weight"):
+        sd.update(module_state_dict(params[head], DECODER_NAMES, f"{head}."))
+    return sd

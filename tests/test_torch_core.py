@@ -1,0 +1,144 @@
+"""Port core numerics vs the JAX package on the same numpy inputs.
+
+Every comparison feeds float32 arrays made from a seed to both packages.
+Resizes on the serving path only enlarge (2x decoder upsamples, the
+``_match_hw`` fix-ups, the 4x light-input upsample, the cascade-1
+hand-off); ``jax.image.resize`` antialiases only when it shrinks, so
+``F.interpolate(antialias=False)`` is the same function on these sizes.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from inverserenderingofindoorscene_tpu.core import brdf as jbrdf
+from inverserenderingofindoorscene_tpu.core import camera as jcamera
+from inverserenderingofindoorscene_tpu.core import imageops as jimageops
+from inverserenderingofindoorscene_tpu.core import scale as jscale
+from inverserenderingofindoorscene_tpu.core import sg as jsg
+from inverserenderingofindoorscene_tpu.core import sphere as jsphere
+from inverserenderingofindoorscene_torch.core import brdf, camera, imageops
+from inverserenderingofindoorscene_torch.core import scale, sg, sphere
+
+ATOL = 1e-5
+
+
+def sg_inputs(rng, lead=(1, 10, 13), k=12):
+    ax = rng.uniform(-1, 1, lead + (k, 3))
+    ax = (ax / np.linalg.norm(ax, axis=-1, keepdims=True)).astype(np.float32)
+    lamb = rng.uniform(0, 20, lead + (k,)).astype(np.float32)
+    wgt = rng.uniform(0, 2, lead + (k, 3)).astype(np.float32)
+    return ax, lamb, wgt
+
+
+@pytest.mark.parametrize("hw,fov", [((120, 160), 57.0), ((10, 13), 42.75)])
+def test_view_dirs_bit_equal(hw, fov):
+    np.testing.assert_array_equal(camera.view_dirs(*hw, fov),
+                                  jcamera.view_dirs(*hw, fov))
+
+
+@pytest.mark.parametrize("eh,ew", [(8, 16), (4, 8)])
+def test_hemisphere_bit_equal(eh, ew):
+    np.testing.assert_array_equal(sphere.hemisphere_dirs(eh, ew),
+                                  jsphere.hemisphere_dirs(eh, ew))
+    np.testing.assert_array_equal(sphere.hemisphere_weights(eh, ew),
+                                  jsphere.hemisphere_weights(eh, ew))
+
+
+def test_sg_to_envmap_matches_jax():
+    ax, lamb, wgt = sg_inputs(np.random.RandomState(0))
+    want = np.asarray(jsg.sg_to_envmap(jnp.asarray(ax), jnp.asarray(lamb),
+                                       jnp.asarray(wgt)))
+    got = sg.sg_to_envmap(torch.from_numpy(ax), torch.from_numpy(lamb),
+                          torch.from_numpy(wgt)).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def test_unsquash_and_flat_split_match_jax():
+    rng = np.random.RandomState(1)
+    x = rng.uniform(0, 1, (2, 4, 5, 84)).astype(np.float32)
+    want = np.asarray(jsg.unsquash(jnp.asarray(x)))
+    got = sg.unsquash(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    for a, b in zip(sg.sg_params_from_flat(torch.from_numpy(x)),
+                    jsg.sg_params_from_flat(jnp.asarray(x))):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+def test_render_envmap_matches_jax():
+    rng = np.random.RandomState(2)
+    lead = (1, 10, 13)
+    albedo = rng.rand(*lead, 3).astype(np.float32)
+    normal = rng.uniform(-1, 1, lead + (3,))
+    normal[..., 2] = np.abs(normal[..., 2]) + 0.3
+    normal = (0.97 * normal / np.linalg.norm(normal, axis=-1, keepdims=True)
+              ).astype(np.float32)
+    rough = rng.uniform(-1, 1, lead + (1,)).astype(np.float32)
+    env = np.array(jsg.sg_to_envmap(*map(jnp.asarray, sg_inputs(rng, lead))))
+    args = (albedo, normal, rough, env)
+    for fov in (57.0, 42.75):
+        want = jbrdf.render_envmap(*map(jnp.asarray, args), fov_deg=fov)
+        got = brdf.render_envmap(*map(torch.from_numpy, args), fov_deg=fov)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL)
+
+
+@pytest.mark.parametrize("singular", [False, True])
+def test_ls_regress_diff_spec_matches_jax(singular):
+    rng = np.random.RandomState(3)
+    diff = rng.rand(2, 8, 9, 3).astype(np.float32)
+    spec = 0.1 * rng.rand(2, 8, 9, 3).astype(np.float32)
+    if singular:  # specular parallel to diffuse: the diffuse-only fallback
+        spec = 0.5 * diff
+    im = rng.rand(2, 8, 9, 3).astype(np.float32)
+    want = jscale.ls_regress_diff_spec(*map(jnp.asarray,
+                                            (diff, spec, im, diff, spec)))
+    got = scale.ls_regress_diff_spec(*map(torch.from_numpy,
+                                          (diff, spec, im, diff, spec)))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=ATOL)
+    want = jscale.ls_regress(*map(jnp.asarray, (diff, im, spec)))
+    got = scale.ls_regress(*map(torch.from_numpy, (diff, im, spec)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+
+
+# (input hw, output hw): 2x decoder upsample, the two enlarging
+# _match_hw fix-ups at 240x320, the 4x light-input upsample at test size
+@pytest.mark.parametrize("src,dst", [
+    ((8, 10), (16, 20)),
+    ((14, 20), (15, 20)),
+    ((6, 10), (7, 10)),
+    ((32, 32), (128, 128)),
+])
+def test_resize_bilinear_matches_jax(src, dst):
+    x = np.random.RandomState(4).rand(2, *src, 5).astype(np.float32)
+    want = np.asarray(jimageops.resize_bilinear(jnp.asarray(x), dst))
+    got = imageops.resize_bilinear(
+        torch.from_numpy(x).permute(0, 3, 1, 2), dst
+    ).permute(0, 2, 3, 1).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+@pytest.mark.parametrize("src,dst", [
+    ((64, 64), (32, 32)),
+    ((240, 320), (120, 160)),
+    ((15, 20), (7, 10)),
+])
+def test_adaptive_avg_pool_matches_jax(src, dst):
+    x = np.random.RandomState(5).rand(1, *src, 3).astype(np.float32)
+    want = np.asarray(jimageops.adaptive_avg_pool(jnp.asarray(x), dst))
+    got = imageops.adaptive_avg_pool(
+        torch.from_numpy(x).permute(0, 3, 1, 2), dst
+    ).permute(0, 2, 3, 1).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def test_replication_pad_matches_jax():
+    x = np.random.RandomState(6).rand(1, 5, 7, 4).astype(np.float32)
+    want = np.asarray(jimageops.replication_pad(jnp.asarray(x), 1))
+    got = imageops.replication_pad(
+        torch.from_numpy(x).permute(0, 3, 1, 2), 1
+    ).permute(0, 2, 3, 1).numpy()
+    np.testing.assert_array_equal(got, want)
