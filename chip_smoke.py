@@ -5,16 +5,24 @@
 
 Phases, each fatal on failure:
   1. device: the card's name and power limit, CUDA version, TF32 off;
-  2. build: compile every CUDA kernel of the serving path from the sources
-     in this checkout (``inverserenderingofindoorscene_torch/ops/csrc``);
+  2. build: compile every CUDA kernel from the sources in this checkout
+     (``inverserenderingofindoorscene_torch/ops/csrc``), all at once;
   3. kernels: each kernel's wrapper against its plain PyTorch version on
-     the card, at the serving shape and two others, with times;
+     the card (a backward also against torch.autograd of the plain
+     forward), at its main-path shape, a ragged 10x13 and K=4, with times
+     and bounds;
   4. serving: the two-cascade ``InverseRenderer`` (level 2, lighting on)
      at the reference operating point (image 240x320, lighting grid
      120x160, 12 SG lobes, 8x16 envmap) with seeded random weights; the
-     launch counts show the requests went through the kernels, each
+     launch counts show the requests went through ``render_sg_env``, each
      cascade's lighting agrees with the plain route on the same inputs,
-     and the plain route end to end gives the same cascade-0 maps.
+     and the plain route end to end gives the same cascade-0 maps;
+  5. training: the cascade-0 lighting train step at full width (B=5, image
+     240x320, grid 120x160, light input 480x640) from the same seeded
+     weights on the kernel route and the plain route; step 1's losses
+     and light gradients agree, then 20 steps on each route are timed,
+     descend, and launch each training kernel once a step on the kernel
+     route.
 The second-to-last line of output is the kernels' JSON record, the last
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits non-zero
 before printing any result.
@@ -23,6 +31,7 @@ before printing any result.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import statistics
 import subprocess
@@ -32,6 +41,7 @@ import time
 import numpy as np
 import torch
 
+from inverserenderingofindoorscene_torch.data.synthetic import synthetic_batch
 from inverserenderingofindoorscene_torch.ops import build, sg_render
 from inverserenderingofindoorscene_torch.pipeline.brdf import BRDFNets
 from inverserenderingofindoorscene_torch.pipeline.inference import (
@@ -40,13 +50,28 @@ from inverserenderingofindoorscene_torch.pipeline.inference import (
     predict_light_core,
 )
 from inverserenderingofindoorscene_torch.pipeline.light import LightNets
+from inverserenderingofindoorscene_torch.train.steps import (
+    make_light_train_step,
+)
 
 IM_HW = (240, 320)
 ENV_RC = (120, 160)
 SG_NUM = 12
 N_REQUESTS = 100
-KERNEL_SOURCE = "inverserenderingofindoorscene_torch/ops/csrc/sg_render_env.cu"
-KERNEL_REPLACES = "inverserenderingofindoorscene_tpu/ops/sg_render.py:397"
+N_DIRS = 128  # the 8x16 envmap
+TRAIN_B = 5  # the JAX light-training CLI's batch
+TRAIN_LR = 1e-4  # the reference's Adam rate
+N_TRAIN_STEPS = 20
+_CSRC = "inverserenderingofindoorscene_torch/ops/csrc/"
+_TPU = "inverserenderingofindoorscene_tpu/ops/sg_render.py:"
+# kernel -> (its source, the TPU kernel it replaces)
+KERNELS = {
+    "render_sg_env": (_CSRC + "sg_render_env.cu", _TPU + "397"),
+    "sg_envmap_fwd": (_CSRC + "sg_envmap.cu", _TPU + "513"),
+    "sg_envmap_bwd": (_CSRC + "sg_envmap.cu", _TPU + "520"),
+    "render_sg_fwd": (_CSRC + "sg_render.cu", _TPU + "189"),
+    "render_sg_bwd": (_CSRC + "sg_render.cu", _TPU + "197"),
+}
 
 # data-sheet device-memory rate and f32 (non-tensor-core) peak, by card
 # name; the SXM part's figures are the default
@@ -73,6 +98,25 @@ SPECULAR_REL_L1 = 1e-3
 # so c_albedo / c_light are held to rtol 1e-2.
 CHAIN_TOL = {"env_img": (1e-3, 1e-5), "diffuse": (1e-3, 1e-5)}
 SCALE_RTOL = 1e-2
+# a backward kernel vs the plain adjoint and vs torch.autograd of the plain
+# forward: atol after dividing by max(max|g|, 1), the JAX kernel tests'
+# rule (tests/test_sg_render_kernel.py:73-77)
+GRAD_SCALED_ATOL = 2e-3
+# render_sg's backward, whose normal and rough gradients run through the
+# GGX term and the tangent frame, is held by the relative L2 distance of
+# each whole gradient instead: in f32 the shortcut algebra's own adjoint
+# (the TPU kernel's math) is 3.2e-3 (normal) and 1.0e-3 (rough) from its
+# float64 value at 120x160 K=12, and single elements leave any small
+# elementwise tolerance (tests/test_torch_sg_render.py::
+# test_render_sg_bwd_f32_conditioning).  The lobe and albedo gradients are
+# within 1.5e-4 there.
+GRAD_REL_L2 = {"normal": 1e-2, "rough": 1e-2, "albedo": 1e-3, "axis": 1e-3,
+               "lamb": 1e-3, "weight": 1e-3}
+# training step 1, kernel route vs plain route on one batch: the light
+# losses as relative differences, the light gradients as the worst
+# parameter's relative L2 distance (measured on the H100: reconst 0,
+# render 2.4e-6, grads 3.3e-6)
+STEP1_TOL = {"reconst": 1e-5, "render": 5e-5, "grads": 1e-4}
 
 
 def log(*args):
@@ -163,46 +207,203 @@ def phase_build():
                 log(f"[build] {name}: {line.strip()}")
 
 
+def check_grad(name, got, want, tol=GRAD_SCALED_ATOL):
+    """|got - want| / max(max|want|, 1) <= tol elementwise (the JAX kernel
+    tests' rule); returns the max abs error."""
+    scale = max(float(want.abs().max()), 1.0)
+    err = float((got - want).abs().max())
+    if not torch.isfinite(got).all() or not err / scale <= tol:
+        raise AssertionError(f"{name}: max abs err {err} > {tol} x {scale}")
+    return err
+
+
+def rel_l2(got, want):
+    return float(torch.linalg.vector_norm(got - want)
+                 / torch.linalg.vector_norm(want))
+
+
+def check_rel_l2(name, got, want, tol):
+    """|got - want|_2 <= tol |want|_2 over the whole tensor; returns the
+    max abs error."""
+    dist = rel_l2(got, want)
+    if not torch.isfinite(got).all() or not dist <= tol:
+        raise AssertionError(f"{name}: relative L2 distance {dist} > {tol}")
+    return float((got - want).abs().max())
+
+
+def bound(n_bytes, flops, bw, f32_peak):
+    """(bound_ms, bound_by): the larger of bytes / memory rate and
+    operations / f32 rate."""
+    t_bytes, t_ops = n_bytes / bw, flops / f32_peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def log_kernel(name, label, shape, errs, ms, plain_ms, bound_ms, bound_by,
+               n_bytes, flops):
+    b, h, w, k = shape
+    log(f"[kernels] {name} {label} B={b} {h}x{w} K={k}: max abs err "
+        + ", ".join(f"{nm} {e:.3e}" for nm, e in errs.items())
+        + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB, "
+        f"{flops / 1e6:.0f} MFLOP)")
+
+
+def record_of(name, errs, ms, plain_ms, bound_ms, bound_by):
+    source, replaces = KERNELS[name]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "max_abs_err": max(errs.values()), "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def plain_grads(fn, inputs, cotangents):
+    """torch.autograd of a plain forward: the vector-Jacobian product."""
+    inputs = [x.detach().requires_grad_(True) for x in inputs]
+    outs = fn(*inputs)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    return torch.autograd.grad(outs, inputs, cotangents)
+
+
+def check_render_sg_env(args, shape):
+    b, h, w, k = shape
+    got = sg_render.render_sg_env(*args)
+    want = sg_render.render_sg_env_plain(*args)
+    torch.cuda.synchronize()
+    errs = {
+        "diffuse": check_close("diffuse", got[0], want[0],
+                               *ELEMENT_TOL["diffuse"]),
+        "specular": check_rel_l1("specular", got[1], want[1],
+                                 SPECULAR_REL_L1),
+        "env": check_close("env", got[2], want[2], *ELEMENT_TOL["env"]),
+    }
+    ms = median_ms(lambda: sg_render.render_sg_env(*args))
+    plain_ms = median_ms(lambda: sg_render.render_sg_env_plain(*args))
+    n, d = b * h * w, N_DIRS
+    n_bytes = 4 * (n * (7 + 7 * k) + h * w * 3 + d * 4 + n * (6 + 3 * d))
+    flops = n * (8 * k + 45) * d
+    return errs, ms, plain_ms, n_bytes, flops
+
+
+def check_render_sg_fwd(args, shape):
+    b, h, w, k = shape
+    got = sg_render.render_sg_fwd(*args)
+    want = sg_render.render_sg_plain(*args)
+    torch.cuda.synchronize()
+    errs = {
+        "diffuse": check_close("diffuse", got[0], want[0],
+                               *ELEMENT_TOL["diffuse"]),
+        "specular": check_rel_l1("specular", got[1], want[1],
+                                 SPECULAR_REL_L1),
+    }
+    ms = median_ms(lambda: sg_render.render_sg_fwd(*args))
+    plain_ms = median_ms(lambda: sg_render.render_sg_plain(*args))
+    n, d = b * h * w, N_DIRS
+    n_bytes = 4 * (n * (7 + 7 * k) + h * w * 3 + d * 4 + n * 6)
+    flops = n * (8 * k + 45) * d
+    return errs, ms, plain_ms, n_bytes, flops
+
+
+GRAD_NAMES = ("albedo", "normal", "rough", "axis", "lamb", "weight")
+
+
+def check_render_sg_bwd(args, shape):
+    b, h, w, k = shape
+    rng = np.random.RandomState(b * h * w + k)
+    cot = [torch.as_tensor(rng.randn(b, h, w, 3).astype(np.float32),
+                           device=args[0].device) for _ in range(2)]
+    got = sg_render.render_sg_bwd(*args, *cot)
+    explicit = sg_render.render_sg_bwd_plain(*args, *cot)
+    auto = plain_grads(sg_render.render_sg_plain, args, cot)
+    torch.cuda.synchronize()
+    errs = {}
+    for nm, g, e, a in zip(GRAD_NAMES, got, explicit, auto):
+        tol = GRAD_REL_L2[nm]
+        errs[nm] = check_rel_l2(f"d_{nm} vs plain adjoint", g, e, tol)
+        errs[f"{nm} (autograd)"] = check_rel_l2(f"d_{nm} vs autograd", g, a,
+                                                tol)
+    log("[kernels] render_sg_bwd B={} {}x{} K={}: relative L2 vs plain "
+        "adjoint / vs autograd: ".format(*shape)
+        + ", ".join(f"{nm} {rel_l2(g, e):.2e} / {rel_l2(g, a):.2e}"
+                    for nm, g, e, a in zip(GRAD_NAMES, got, explicit, auto)))
+    ms = median_ms(lambda: sg_render.render_sg_bwd(*args, *cot))
+    plain_ms = median_ms(lambda: sg_render.render_sg_bwd_plain(*args, *cot))
+    n, d = b * h * w, N_DIRS
+    n_bytes = 4 * (2 * n * (7 + 7 * k) + h * w * 3 + d * 4 + n * 6)
+    flops = 3 * n * (8 * k + 45) * d
+    return errs, ms, plain_ms, n_bytes, flops
+
+
+def check_sg_envmap_fwd(args, shape):
+    b, h, w, k = shape
+    lobes = args[3:]
+    got = sg_render.sg_envmap_fwd(*lobes)
+    want = sg_render.sg_envmap_plain(*lobes)
+    torch.cuda.synchronize()
+    errs = {"env": check_close("env", got, want, *ELEMENT_TOL["env"])}
+    ms = median_ms(lambda: sg_render.sg_envmap_fwd(*lobes))
+    plain_ms = median_ms(lambda: sg_render.sg_envmap_plain(*lobes))
+    n, d = b * h * w, N_DIRS
+    n_bytes = 4 * (n * 7 * k + d * 4 + n * 3 * d)
+    flops = n * k * 8 * d
+    return errs, ms, plain_ms, n_bytes, flops
+
+
+def check_sg_envmap_bwd(args, shape):
+    b, h, w, k = shape
+    lobes = args[3:]
+    rng = np.random.RandomState(b * h * w + k)
+    g_env = torch.as_tensor(rng.randn(b, h, w, N_DIRS, 3).astype(np.float32),
+                            device=args[0].device)
+    got = sg_render.sg_envmap_bwd(*lobes, g_env)
+    explicit = sg_render.sg_envmap_bwd_plain(*lobes, g_env)
+    auto = plain_grads(sg_render.sg_envmap_plain, lobes, (g_env,))
+    torch.cuda.synchronize()
+    errs = {}
+    for nm, g, e, a in zip(GRAD_NAMES[3:], got, explicit, auto):
+        errs[nm] = check_grad(f"d_{nm} vs plain adjoint", g, e)
+        errs[f"{nm} (autograd)"] = check_grad(f"d_{nm} vs autograd", g, a)
+    ms = median_ms(lambda: sg_render.sg_envmap_bwd(*lobes, g_env))
+    plain_ms = median_ms(lambda: sg_render.sg_envmap_bwd_plain(*lobes, g_env))
+    n, d = b * h * w, N_DIRS
+    n_bytes = 4 * (2 * n * 7 * k + d * 4 + n * 3 * d)
+    flops = 3 * n * k * 8 * d
+    return errs, ms, plain_ms, n_bytes, flops
+
+
+# kernel name -> (check, the shape its record is taken at: the main path's)
+KERNEL_CHECKS = {
+    "render_sg_env": (check_render_sg_env, (1, *ENV_RC, SG_NUM)),
+    "sg_envmap_fwd": (check_sg_envmap_fwd, (TRAIN_B, *ENV_RC, SG_NUM)),
+    "sg_envmap_bwd": (check_sg_envmap_bwd, (TRAIN_B, *ENV_RC, SG_NUM)),
+    "render_sg_fwd": (check_render_sg_fwd, (TRAIN_B, *ENV_RC, SG_NUM)),
+    "render_sg_bwd": (check_render_sg_bwd, (TRAIN_B, *ENV_RC, SG_NUM)),
+}
+
+
 def phase_kernels(seed, dev):
-    """render_sg_env vs its plain version; returns the JSON record."""
+    """Every kernel vs its plain version (a backward also vs
+    torch.autograd of the plain forward) at its main-path shape, a ragged
+    10x13 and K=4.  Returns {name: JSON record at the main-path shape}."""
     rng = np.random.RandomState(seed)
     bw, f32_peak = card_peaks(torch.cuda.get_device_name(0))
-    record = None
-    for label, (b, h, w, k) in (("full", (1, *ENV_RC, SG_NUM)),
-                                ("ragged", (1, 10, 13, SG_NUM)),
-                                ("K=4", (1, *ENV_RC, 4))):
-        args = kernel_inputs(rng, b, h, w, k, dev)
-        got = sg_render.render_sg_env(*args)
-        want = sg_render.render_sg_env_plain(*args)
-        torch.cuda.synchronize()
-        errs = {
-            "diffuse": check_close("diffuse", got[0], want[0],
-                                   *ELEMENT_TOL["diffuse"]),
-            "specular": check_rel_l1("specular", got[1], want[1],
-                                     SPECULAR_REL_L1),
-            "env": check_close("env", got[2], want[2], *ELEMENT_TOL["env"]),
-        }
-        ms = median_ms(lambda: sg_render.render_sg_env(*args))
-        plain_ms = median_ms(lambda: sg_render.render_sg_env_plain(*args))
-        n, d = b * h * w, 128
-        n_bytes = 4 * (n * (7 + 7 * k) + h * w * 3 + d * 4 + n * (6 + 3 * d))
-        flops = n * (8 * k + 45) * d
-        bound_ms = max(n_bytes / bw, flops / f32_peak) * 1e3
-        bound_by = "bytes" if n_bytes / bw >= flops / f32_peak else "operations"
-        log(f"[kernels] render_sg_env {label} B={b} {h}x{w} K={k}: max abs err "
-            + ", ".join(f"{nm} {e:.3e}" for nm, e in errs.items())
-            + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB, "
-            f"{flops / 1e6:.0f} MFLOP)")
-        if label == "full":
-            record = {
-                "name": "render_sg_env", "route": "cuda",
-                "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
-                "max_abs_err": max(errs.values()), "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": None,
-            }
-    return record
+    records = {}
+    for name, (check, main_shape) in KERNEL_CHECKS.items():
+        b = main_shape[0]
+        for label, shape in (("main", main_shape),
+                             ("ragged", (1, 10, 13, SG_NUM)),
+                             ("K=4", (b, *ENV_RC, 4))):
+            args = kernel_inputs(rng, *shape, dev)
+            errs, ms, plain_ms, n_bytes, flops = check(args, shape)
+            bound_ms, bound_by = bound(n_bytes, flops, bw, f32_peak)
+            log_kernel(name, label, shape, errs, ms, plain_ms, bound_ms,
+                       bound_by, n_bytes, flops)
+            if label == "main":
+                records[name] = record_of(name, errs, ms, plain_ms, bound_ms,
+                                          bound_by)
+            del args
+        torch.cuda.empty_cache()
+    return records
 
 
 def timed_request(renderer, im, im_small):
@@ -271,8 +472,17 @@ def check_lighting(stacks, im, im_small, out, worst):
             worst[key] = max(worst.get(key, 0.0), rel)
 
 
+def reset_launches():
+    for name in KERNELS:
+        getattr(sg_render, name).launches = 0
+
+
+def read_launches():
+    return {name: getattr(sg_render, name).launches for name in KERNELS}
+
+
 def phase_serving(seed):
-    """Returns the kernel launches of the main path's run."""
+    """Returns {kernel: launches} of the serving path's run."""
     gen = torch.Generator().manual_seed(seed)
     t0 = time.perf_counter()
     stacks = [(BRDFNets(lvl, generator=gen),
@@ -297,17 +507,18 @@ def phase_serving(seed):
     # the main path: the kernel route, counted and timed; the checks run
     # between requests, outside the timed region, and launch no kernel
     worst, times, preds0 = {}, [], []
-    sg_render.render_sg_env.launches = 0
+    reset_launches()
     for im, im_small in requests:
         out, ms = timed_request(fast, im, im_small)
         times.append(ms)
         check_shapes(out)
         check_lighting(stacks, im, im_small, out, worst)
         preds0.append(out["preds"][0])
-    launches = sg_render.render_sg_env.launches
-    if launches != 2 * N_REQUESTS:
-        raise AssertionError(f"render_sg_env launched {launches} times for "
-                             f"{N_REQUESTS} requests, expected 2 each")
+    launches = read_launches()
+    if launches != {**dict.fromkeys(KERNELS, 0),
+                    "render_sg_env": 2 * N_REQUESTS}:
+        raise AssertionError(f"launches {launches} for {N_REQUESTS} requests, "
+                             "expected 2 of render_sg_env each and no other")
 
     plain_times = []
     for (im, im_small), p0 in zip(requests, preds0):
@@ -322,7 +533,8 @@ def phase_serving(seed):
         + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
     med, p90 = percentiles(times)
     pmed, pp90 = percentiles(plain_times)
-    log(f"[serving] {N_REQUESTS} requests, {launches} render_sg_env "
+    log(f"[serving] {N_REQUESTS} requests, {launches['render_sg_env']} "
+        "render_sg_env "
         f"launches; ms/request kernel route median {med:.3f} p90 {p90:.3f}, "
         f"plain route median {pmed:.3f} p90 {pp90:.3f}; peak device memory "
         f"{peak_mib:.0f} MiB")
@@ -334,7 +546,128 @@ def phase_serving(seed):
         timed_request(fast, *requests[0])
     log("[serving] torch.profiler, one request on the kernel route:")
     log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=20))
-    return launches
+    return {"render_sg_env": launches["render_sg_env"]}
+
+
+def device_busy_ms(prof):
+    """The union of the device's kernel and copy intervals in a profile,
+    in ms (CUPTI's own buffer events left out)."""
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and e.name not in ("Activity Buffer Request", "Buffer Flush"))
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy / 1e3
+
+
+def timed_step(step, batch):
+    """One training step, host clock around work that ends in a
+    synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    metrics = step(batch)
+    torch.cuda.synchronize()
+    return metrics, (time.perf_counter() - t0) * 1e3
+
+
+def check_first_step(steps, batch):
+    """Both routes' loss and gradients on one batch, before any update."""
+    out = {}
+    for route, step in steps.items():
+        total, losses = step.loss(batch)
+        total.backward()
+        out[route] = (losses, {n: p.grad.clone() for n, p in
+                               step.light_nets.named_parameters()})
+        step.optimizer.zero_grad(set_to_none=True)
+    (lk, gk), (lp, gp) = out["kernels"], out["plain"]
+    for k in ("albedo", "normal", "rough", "depth"):
+        if not torch.equal(lk[k], lp[k]):
+            raise AssertionError(f"BRDF error {k} differs between routes")
+    dist = {k: abs(lk[k].item() / lp[k].item() - 1.0)
+            for k in ("reconst", "render")}
+    dist["grads"] = max(float(torch.linalg.vector_norm(gk[n] - gp[n])
+                              / torch.linalg.vector_norm(gp[n])) for n in gp)
+    log("[training] step 1, kernel route vs plain route: "
+        + ", ".join(f"{k} {v.item():.6g}" for k, v in lk.items())
+        + "; relative differences "
+        + ", ".join(f"{k} {v:.3e}" for k, v in dist.items())
+        + " (grads: the worst parameter's relative L2)")
+    for k, tol in STEP1_TOL.items():
+        if not dist[k] <= tol:
+            raise AssertionError(f"step 1 {k}: {dist[k]} > {tol}")
+
+
+def phase_training(seed, dev):
+    """Cascade-0 lighting training at full width, both routes from the
+    same weights.  Returns {kernel: launches} of the kernel route's run."""
+    # cuDNN's heuristic picks, for a B=5 f32 convolution with TF32 off, an
+    # FFT algorithm that launches ~10^5 small complex GEMMs a step (1.3 s
+    # a step); autotuning picks the fastest algorithm once per shape
+    # (during step 1, before the timed steps)
+    torch.backends.cudnn.benchmark = True
+    log("[training] cudnn.benchmark on (autotuned convolution algorithms)")
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(seed + 2)
+    brdf = BRDFNets(0, generator=gen)
+    light = LightNets(sg_num=SG_NUM, env_rows=ENV_RC[0], env_cols=ENV_RC[1],
+                      generator=gen)
+    steps = {route: make_light_train_step(copy.deepcopy(brdf),
+                                          copy.deepcopy(light),
+                                          use_kernels=flag, device=dev,
+                                          lr=TRAIN_LR)
+             for route, flag in (("kernels", True), ("plain", False))}
+    batch = synthetic_batch(batch=TRAIN_B, im_hw=IM_HW, env_rc=ENV_RC,
+                            sg_num=SG_NUM, seed=seed, device=dev)
+    h, w = steps["kernels"].light_nets.light_hw
+    log(f"[training] B={TRAIN_B}, image {IM_HW[0]}x{IM_HW[1]}, grid "
+        f"{ENV_RC[0]}x{ENV_RC[1]}, light input {h}x{w}, K={SG_NUM}, "
+        f"lr {TRAIN_LR}: {time.perf_counter() - t0:.1f} s (set-up)")
+    check_first_step(steps, batch)
+
+    results = {}
+    for route, step in steps.items():
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        totals, times = [], []
+        for _ in range(N_TRAIN_STEPS):
+            metrics, ms = timed_step(step, batch)
+            times.append(ms)
+            totals.append(float(metrics["total"]))
+            bad = [k for k, v in metrics.items() if not torch.isfinite(v)]
+            if bad:
+                raise AssertionError(f"{route}: non-finite {bad}")
+        launches = read_launches()
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        med, p90 = percentiles(times)
+        log(f"[training] {route} route, {N_TRAIN_STEPS} steps: ms/step "
+            f"median {med:.3f} p90 {p90:.3f}; peak device memory "
+            f"{peak_mib:.0f} MiB; total {totals[0]:.6g} -> {totals[-1]:.6g}; "
+            f"launches {launches}")
+        if not min(totals[1:]) < totals[0]:
+            raise AssertionError(f"{route}: total did not fall: {totals}")
+        results[route] = launches
+    want = {"kernels": {**dict.fromkeys(KERNELS, N_TRAIN_STEPS),
+                        "render_sg_env": 0},
+            "plain": dict.fromkeys(KERNELS, 0)}
+    if results != want:
+        raise AssertionError(f"launches {results}, expected {want}")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, ms = timed_step(steps["kernels"], batch)
+    busy_ms = device_busy_ms(prof)
+    log(f"[training] torch.profiler, one step on the kernel route: "
+        f"{ms:.3f} ms on the host clock, device busy {busy_ms:.3f} ms "
+        f"(idle share {1.0 - busy_ms / ms:.3f}):")
+    log(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                  row_limit=25))
+    return {k: v for k, v in results["kernels"].items()
+            if k != "render_sg_env"}
 
 
 def main(argv=None):
@@ -348,10 +681,13 @@ def main(argv=None):
     dev = torch.device("cuda")
     smi = phase_device()
     phase_build()
-    record = phase_kernels(args.seed, dev)
-    record["launches"] = phase_serving(args.seed)
+    records = phase_kernels(args.seed, dev)
+    launches = phase_serving(args.seed)
+    launches.update(phase_training(args.seed, dev))
+    for name, record in records.items():
+        record["launches"] = launches[name]
     log(smi)
-    log(json.dumps({"kernels": [record]}))
+    log(json.dumps({"kernels": list(records.values())}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,11 +6,13 @@ package so each counterpart is found under the same path; inside, the code
 is PyTorch idiom: ``nn.Module``s in NCHW, plain functions on tensors, an
 explicit ``device`` and an explicit ``torch.Generator`` for init.
 
-The public serving functions (``pipeline.inference``) and the kernel
-wrapper ``ops.sg_render.render_sg_env`` keep the JAX package's NHWC
-layout at their boundary.  The SG decode + shading integral runs through
-a hand-written CUDA kernel for Hopper (``ops/csrc/sg_render_env.cu``) on CUDA tensors and
-through its plain PyTorch version on CPU tensors.
+The public serving and training functions (``pipeline.inference``,
+``pipeline.light.light_step``, ``train.steps``) and the kernel wrappers
+of ``ops.sg_render`` keep the JAX package's NHWC layout at their
+boundary.  The SG decode and the shading integral run through
+hand-written CUDA kernels for Hopper (``ops/csrc/*.cu``: the serving
+kernel and the forward/backward pairs of training) on CUDA tensors and
+through their plain PyTorch versions on CPU tensors.
 
 This package imports ``torch`` and numpy, never ``jax`` and nothing of the
 JAX package.

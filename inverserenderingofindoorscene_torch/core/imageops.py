@@ -1,4 +1,4 @@
-"""Image-space ops on NCHW tensors.
+"""Image-space ops on NCHW tensors, and the NHWC <-> NCHW views.
 
 PyTorch's own ops already have the reference semantics that the JAX
 package's ``core/imageops.py`` rebuilds for the TPU: bilinear resize with
@@ -12,6 +12,16 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+def to_nchw(x: torch.Tensor) -> torch.Tensor:
+    """NHWC -> NCHW view (the nets' layout)."""
+    return x.permute(0, 3, 1, 2)
+
+
+def to_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """NCHW -> NHWC view (the layout at the public functions)."""
+    return x.permute(0, 2, 3, 1)
 
 
 def resize_bilinear(x: torch.Tensor, out_hw) -> torch.Tensor:

@@ -16,9 +16,8 @@ from inverserenderingofindoorscene_torch.core import brdf, imageops
 
 def pool_nhwc(x: torch.Tensor, out_hw) -> torch.Tensor:
     """``imageops.adaptive_avg_pool`` of an NHWC tensor, NHWC out."""
-    return imageops.adaptive_avg_pool(x.permute(0, 3, 1, 2), out_hw).permute(
-        0, 2, 3, 1
-    )
+    return imageops.to_nhwc(
+        imageops.adaptive_avg_pool(imageops.to_nchw(x), out_hw))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -3,9 +3,9 @@
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface, loaded with ``ctypes``.
 Libraries go to ``build/torch_kernels/`` at the root of the checkout,
-named by a hash of the source and the flags, so a checkout builds its own
-kernels on first use and a changed source is rebuilt.  Nothing here runs at
-import time.
+named by a hash of the source, the shared ``csrc/*.cuh`` headers and the
+flags, so a checkout builds its own kernels on first use and a changed
+source or header is rebuilt.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -25,7 +25,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("sg_render_env",)
+SOURCES = ("sg_render_env", "sg_render", "sg_envmap")
 
 
 def _nvcc() -> str:
@@ -40,9 +40,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
+    """Where the library built from ``csrc/<name>.cu`` lives.  Every
+    header is hashed with every source: a source includes what it needs."""
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(
+        src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 

@@ -1,19 +1,30 @@
-"""Fused SG decode + shading + envmap for serving: the CUDA kernel's wrapper
-and its plain PyTorch version.
+"""SG lighting kernels: the CUDA kernels' wrappers, their plain PyTorch
+versions and the autograd Functions of the training pair.
 
-``render_sg_env`` is the counterpart of the JAX package's
-``ops/sg_render.py:render_sg_env`` (the Pallas kernel ``_fwd_env5_kernel``)
-with the same NHWC API.  On CUDA tensors it launches the hand-written
-kernel in ``csrc/sg_render_env.cu`` (design and bound are noted there); on
-CPU tensors it runs :func:`render_sg_env_plain`, the same function in
-plain PyTorch.  There is no other route: a CUDA tensor the kernel does not
-take raises.
+Counterparts of the JAX package's ``ops/sg_render.py``, with its NHWC API:
+
+* ``render_sg_env`` (serving, forward only; ``csrc/sg_render_env.cu``);
+* ``render_sg`` (decode + shading, differentiable; ``csrc/sg_render.cu``);
+* ``sg_envmap`` (decode to the per-pixel envmap, differentiable;
+  ``csrc/sg_envmap.cu``).
+
+Each kernel has a launch wrapper (``render_sg_env``, ``render_sg_fwd``,
+``render_sg_bwd``, ``sg_envmap_fwd``, ``sg_envmap_bwd``) that on CUDA
+tensors launches the hand-written kernel and counts it in its
+``launches`` attribute, on CPU tensors runs the kernel's plain PyTorch
+version, and raises for anything else: there is no other route.  The plain
+versions of the backwards (``render_sg_bwd_plain``, ``sg_envmap_bwd_plain``)
+are the hand-derived adjoints written out in PyTorch in the same order as
+the CUDA code (``csrc/sg_common.cuh``), so that the derivation is checked
+against torch.autograd and jax.vjp on the CPU.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -29,6 +40,109 @@ from inverserenderingofindoorscene_torch.ops import build
 
 # dynamic shared memory a block may take without an opt-in attribute
 _SMEM_LIMIT = 48 * 1024
+# the backward kernels keep at most four directions per lane in registers
+_MAX_BWD_DIRS = 128
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.c_longlong
+_SIGNATURES = {
+    "sg_render_env": {
+        "sg_render_env_f32": [_P] * 11 + [_LL, _I, _I, _I, _F, _P],
+        "sg_render_env_smem_bytes": [_I, _I],
+    },
+    "sg_render": {
+        "render_sg_fwd_f32": [_P] * 10 + [_LL, _I, _I, _I, _F, _P],
+        "render_sg_bwd_f32": [_P] * 16 + [_LL, _I, _I, _I, _F, _P],
+        "render_sg_smem_bytes": [_I],
+    },
+    "sg_envmap": {
+        "sg_envmap_fwd_f32": [_P] * 5 + [_LL, _I, _I, _P],
+        "sg_envmap_bwd_f32": [_P] * 8 + [_LL, _I, _I, _P],
+        "sg_envmap_smem_bytes": [_I],
+    },
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _lib(source: str) -> ctypes.CDLL:
+    lib = build.load(source)
+    for fn, argtypes in _SIGNATURES[source].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def _dir_table(env_height, env_width) -> np.ndarray:
+    """[D, 4] float64: hemisphere direction xyz and solid-angle weight."""
+    return np.concatenate(
+        [hemisphere_dirs(env_height, env_width),
+         hemisphere_weights(env_height, env_width)[:, None]], axis=1,
+    )
+
+
+@functools.lru_cache(maxsize=16)
+def _dir_consts(env_height, env_width, device) -> torch.Tensor:
+    """The kernels' [D, 4] f32 direction table on ``device``."""
+    return torch.as_tensor(_dir_table(env_height, env_width).astype(
+        np.float32), device=device)
+
+
+@functools.lru_cache(maxsize=16)
+def _view(height, width, fov_deg, device) -> torch.Tensor:
+    """[H*W, 3] f32 view vectors (float64 numpy cast to f32)."""
+    v = view_dirs(height, width, fov_deg).reshape(-1, 3)
+    return torch.as_tensor(v.astype(np.float32), device=device)
+
+
+def _on_card(fn: str, x: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raise for the rest."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type == "cuda":
+        return True
+    raise ValueError(f"{fn}: unsupported device {x.device}")
+
+
+def _check(fn: str, device, expect: dict) -> None:
+    """Raise unless every {name: (tensor, shape)} is a contiguous float32
+    tensor of that shape on ``device``."""
+    for name, (x, shape) in expect.items():
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{fn}: {name} {tuple(x.shape)} != {shape}")
+        if x.dtype != torch.float32 or x.device != device:
+            raise ValueError(f"{fn}: {name} must be float32 on {device}, "
+                             f"got {x.dtype} on {x.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous")
+
+
+def _shading_inputs(fn, albedo, normal, rough, axis, lamb, weight):
+    """Check the six shading inputs of a CUDA launch; returns (b, h, w, k)."""
+    b, h, w = albedo.shape[:3]
+    k = lamb.shape[-1]
+    _check(fn, albedo.device, {
+        "albedo": (albedo, (b, h, w, 3)),
+        "normal": (normal, (b, h, w, 3)),
+        "rough": (rough, (b, h, w, 1)),
+        "axis": (axis, (b, h, w, k, 3)),
+        "lamb": (lamb, (b, h, w, k)),
+        "weight": (weight, (b, h, w, k, 3)),
+    })
+    return b, h, w, k
+
+
+def _raise_on(fn: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: cudaError {err}")
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# render_sg_env: serving, forward only
+# ---------------------------------------------------------------------------
 
 
 def render_sg_env_plain(albedo, normal, rough, axis, lamb, weight,
@@ -41,37 +155,6 @@ def render_sg_env_plain(albedo, normal, rough, axis, lamb, weight,
         env_height=env_height, env_width=env_width,
     )
     return diffuse, specular, env
-
-
-@functools.lru_cache(maxsize=None)
-def _lib() -> ctypes.CDLL:
-    lib = build.load("sg_render_env")
-    p = ctypes.c_void_p
-    lib.sg_render_env_f32.argtypes = [p] * 11 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, p,
-    ]
-    lib.sg_render_env_f32.restype = ctypes.c_int
-    lib.sg_render_env_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.sg_render_env_smem_bytes.restype = ctypes.c_int
-    return lib
-
-
-@functools.lru_cache(maxsize=16)
-def _dir_consts(env_height, env_width, device) -> torch.Tensor:
-    """[D, 4] f32: hemisphere direction xyz and solid-angle weight."""
-    c = np.concatenate(
-        [hemisphere_dirs(env_height, env_width),
-         hemisphere_weights(env_height, env_width)[:, None]], axis=1,
-    )
-    return torch.as_tensor(c.astype(np.float32), device=device)
-
-
-@functools.lru_cache(maxsize=16)
-def _view(height, width, fov_deg, device) -> torch.Tensor:
-    """[H*W, 3] f32 view vectors (float64 numpy cast to f32)."""
-    v = view_dirs(height, width, fov_deg).reshape(-1, 3)
-    return torch.as_tensor(v.astype(np.float32), device=device)
 
 
 def render_sg_env(albedo, normal, rough, axis, lamb, weight, fov_deg=57.0,
@@ -88,34 +171,15 @@ def render_sg_env(albedo, normal, rough, axis, lamb, weight, fov_deg=57.0,
     be contiguous float32 on one device.  ``render_sg_env.launches``
     counts kernel launches.
     """
-    if albedo.device.type == "cpu":
+    if not _on_card("render_sg_env", albedo):
         return render_sg_env_plain(albedo, normal, rough, axis, lamb, weight,
                                    fov_deg, f0, env_height, env_width)
-    if albedo.device.type != "cuda":
-        raise ValueError(f"render_sg_env: unsupported device {albedo.device}")
-    b, h, w = albedo.shape[:3]
-    k = lamb.shape[-1]
+    b, h, w, k = _shading_inputs("render_sg_env", albedo, normal, rough,
+                                 axis, lamb, weight)
     d = env_height * env_width
-    expect = {
-        "albedo": (albedo, (b, h, w, 3)),
-        "normal": (normal, (b, h, w, 3)),
-        "rough": (rough, (b, h, w, 1)),
-        "axis": (axis, (b, h, w, k, 3)),
-        "lamb": (lamb, (b, h, w, k)),
-        "weight": (weight, (b, h, w, k, 3)),
-    }
-    for name, (x, shape) in expect.items():
-        if tuple(x.shape) != shape:
-            raise ValueError(
-                f"render_sg_env: {name} {tuple(x.shape)} != {shape}")
-        if x.dtype != torch.float32 or x.device != albedo.device:
-            raise ValueError(f"render_sg_env: {name} must be float32 on "
-                             f"{albedo.device}, got {x.dtype} on {x.device}")
-        if not x.is_contiguous():
-            raise ValueError(f"render_sg_env: {name} must be contiguous")
     if d > 1024:
         raise ValueError(f"render_sg_env: {d} directions > 1024 threads")
-    lib = _lib()
+    lib = _lib("sg_render_env")
     if lib.sg_render_env_smem_bytes(k, d) > _SMEM_LIMIT:
         raise ValueError(f"render_sg_env: K={k}, D={d} exceed shared memory")
 
@@ -128,17 +192,468 @@ def render_sg_env(albedo, normal, rough, axis, lamb, weight, fov_deg=57.0,
         return diffuse, specular, env
     view = _view(h, w, float(fov_deg), dev)
     dirs = _dir_consts(env_height, env_width, dev)
-    err = lib.sg_render_env_f32(
+    _raise_on("sg_render_env", lib.sg_render_env_f32(
         albedo.data_ptr(), normal.data_ptr(), rough.data_ptr(),
         axis.data_ptr(), lamb.data_ptr(), weight.data_ptr(),
         view.data_ptr(), dirs.data_ptr(), diffuse.data_ptr(),
         specular.data_ptr(), env.data_ptr(), n, h * w, k, d, float(f0),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"sg_render_env launch failed: cudaError {err}")
+        _stream(dev),
+    ))
     render_sg_env.launches += 1
     return diffuse, specular, env
 
 
 render_sg_env.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# sg_envmap: SG mixture -> per-pixel envmap (the reconstruction loss)
+# ---------------------------------------------------------------------------
+
+
+def sg_envmap_plain(axis, lamb, weight, env_height=8, env_width=16):
+    """The forward kernel's function in plain PyTorch: ``sg_to_envmap``."""
+    return sg_to_envmap(axis, lamb, weight, env_height, env_width)
+
+
+def sg_envmap_bwd_plain(axis, lamb, weight, g_env, env_height=8,
+                        env_width=16):
+    """The backward kernel's function in plain PyTorch, as the explicit
+    adjoint of ``csrc/sg_common.cuh`` (``lobe``, ``lobe_adjoint``,
+    ``write_lobe_grads``).  g_env [...,D,3] is the envmap's adjoint;
+    returns (d_axis, d_lamb, d_weight) shaped like axis, lamb, weight."""
+    ls = torch.as_tensor(hemisphere_dirs(env_height, env_width),
+                         dtype=axis.dtype, device=axis.device)  # [D,3]
+    cosm1 = torch.einsum("...kc,dc->...kd", axis, ls) - 1.0
+    e = torch.exp(lamb[..., None] * cosm1)  # [...,K,D]
+    ge = torch.einsum("...dc,...kc->...kd", g_env, weight)
+    d_weight = torch.einsum("...dc,...kd->...kc", g_env, e)
+    gee = ge * e
+    d_lamb = torch.sum(gee * cosm1, dim=-1)
+    d_axis = lamb[..., None] * torch.einsum("...kd,dc->...kc", gee, ls)
+    return d_axis, d_lamb, d_weight
+
+
+def _envmap_inputs(fn, axis, lamb, weight):
+    b, h, w, k = lamb.shape
+    _check(fn, axis.device, {
+        "axis": (axis, (b, h, w, k, 3)),
+        "lamb": (lamb, (b, h, w, k)),
+        "weight": (weight, (b, h, w, k, 3)),
+    })
+    lib = _lib("sg_envmap")
+    if lib.sg_envmap_smem_bytes(k) > _SMEM_LIMIT:
+        raise ValueError(f"{fn}: K={k} exceeds shared memory")
+    return lib, b * h * w, k
+
+
+def sg_envmap_fwd(axis, lamb, weight, env_height=8, env_width=16):
+    """Launch the forward kernel (CUDA) or run :func:`sg_envmap_plain`
+    (CPU).  Not differentiable; :func:`sg_envmap` is."""
+    if not _on_card("sg_envmap_fwd", axis):
+        return sg_envmap_plain(axis, lamb, weight, env_height, env_width)
+    lib, n, k = _envmap_inputs("sg_envmap_fwd", axis, lamb, weight)
+    d = env_height * env_width
+    dev = axis.device
+    env = torch.empty(lamb.shape[:3] + (d, 3), dtype=torch.float32,
+                      device=dev)
+    if n == 0:
+        return env
+    _raise_on("sg_envmap_fwd", lib.sg_envmap_fwd_f32(
+        axis.data_ptr(), lamb.data_ptr(), weight.data_ptr(),
+        _dir_consts(env_height, env_width, dev).data_ptr(), env.data_ptr(),
+        n, k, d, _stream(dev),
+    ))
+    sg_envmap_fwd.launches += 1
+    return env
+
+
+def sg_envmap_bwd(axis, lamb, weight, g_env, env_height=8, env_width=16):
+    """Launch the backward kernel (CUDA) or run
+    :func:`sg_envmap_bwd_plain` (CPU).  Returns (d_axis, d_lamb,
+    d_weight)."""
+    if not _on_card("sg_envmap_bwd", axis):
+        return sg_envmap_bwd_plain(axis, lamb, weight, g_env, env_height,
+                                   env_width)
+    lib, n, k = _envmap_inputs("sg_envmap_bwd", axis, lamb, weight)
+    d = env_height * env_width
+    if d > _MAX_BWD_DIRS:
+        raise ValueError(f"sg_envmap_bwd: {d} directions > {_MAX_BWD_DIRS}")
+    _check("sg_envmap_bwd", axis.device,
+           {"g_env": (g_env, lamb.shape[:3] + (d, 3))})
+    d_axis, d_lamb, d_weight = (torch.empty_like(x)
+                                for x in (axis, lamb, weight))
+    if n == 0:
+        return d_axis, d_lamb, d_weight
+    dev = axis.device
+    _raise_on("sg_envmap_bwd", lib.sg_envmap_bwd_f32(
+        axis.data_ptr(), lamb.data_ptr(), weight.data_ptr(),
+        _dir_consts(env_height, env_width, dev).data_ptr(), g_env.data_ptr(),
+        d_axis.data_ptr(), d_lamb.data_ptr(), d_weight.data_ptr(),
+        n, k, d, _stream(dev),
+    ))
+    sg_envmap_bwd.launches += 1
+    return d_axis, d_lamb, d_weight
+
+
+sg_envmap_fwd.launches = 0
+sg_envmap_bwd.launches = 0
+
+
+class _SGEnvmap(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, axis, lamb, weight, env_height, env_width):
+        ctx.save_for_backward(axis, lamb, weight)
+        ctx.env_hw = (env_height, env_width)
+        return sg_envmap_fwd(axis, lamb, weight, env_height, env_width)
+
+    @staticmethod
+    def backward(ctx, g_env):
+        grads = sg_envmap_bwd(*ctx.saved_tensors, g_env.contiguous(),
+                              *ctx.env_hw)
+        return (*grads, None, None)
+
+
+def sg_envmap(axis, lamb, weight, env_height=8, env_width=16):
+    """Fused SG -> per-pixel envmap, NHWC API, differentiable.
+
+    axis [B,H,W,K,3], lamb [B,H,W,K] (physical), weight [B,H,W,K,3]
+    (physical).  Returns envmap [B,H,W,D,3] with the semantics of
+    ``core.sg.sg_to_envmap``; the forward and backward are the kernels of
+    ``csrc/sg_envmap.cu`` on CUDA tensors (D <= 128), their plain versions
+    on CPU tensors."""
+    axis, lamb, weight = (x.contiguous() for x in (axis, lamb, weight))
+    return _SGEnvmap.apply(axis, lamb, weight, int(env_height),
+                           int(env_width))
+
+
+# ---------------------------------------------------------------------------
+# render_sg: SG decode + shading (the render loss)
+# ---------------------------------------------------------------------------
+
+
+def render_sg_plain(albedo, normal, rough, axis, lamb, weight, fov_deg=57.0,
+                    f0=0.05, env_height=8, env_width=16):
+    """The forward kernel's function in plain PyTorch:
+    ``render_envmap(..., sg_to_envmap(...))``."""
+    return render_sg_env_plain(albedo, normal, rough, axis, lamb, weight,
+                               fov_deg, f0, env_height, env_width)[:2]
+
+
+def _above(x, lo):
+    """d max(x, lo)/dx with jnp's tie rule (1/2 at the bound)."""
+    return (x > lo).to(x.dtype) + 0.5 * (x == lo).to(x.dtype)
+
+
+def _below(x, hi):
+    return (x < hi).to(x.dtype) + 0.5 * (x == hi).to(x.dtype)
+
+
+def _inside(x, lo, hi):
+    return _above(x, lo) * _below(x, hi)
+
+
+def _frame(normal, rough, v):
+    """``make_frame`` of csrc/sg_common.cuh on [N] columns."""
+    f = SimpleNamespace()
+    f.nx, f.ny, f.nz = normal.unbind(-1)
+    f.vx, f.vy, f.vz = v.unbind(-1)
+    f.s = f.nx * f.nx + f.ny * f.ny + f.nz * f.nz
+    f.inv_n = 1.0 / torch.sqrt(torch.clamp(f.s, 1e-6, 1.0))
+    f.ux, f.uy, f.uz = f.nx * f.inv_n, f.ny * f.inv_n, f.nz * f.inv_n
+    f.cy0x, f.cy0y, f.cy0z = -f.uy * f.ux, 1.0 - f.uy * f.uy, -f.uy * f.uz
+    f.q1 = f.cy0x * f.cy0x + f.cy0y * f.cy0y + f.cy0z * f.cy0z
+    f.inv_cy = 1.0 / torch.sqrt(torch.clamp(f.q1, min=1e-12))
+    f.cyx, f.cyy, f.cyz = (f.cy0x * f.inv_cy, f.cy0y * f.inv_cy,
+                           f.cy0z * f.inv_cy)
+    f.cx0x = f.cyy * f.uz - f.cyz * f.uy
+    f.cx0y = f.cyz * f.ux - f.cyx * f.uz
+    f.cx0z = f.cyx * f.uy - f.cyy * f.ux
+    f.q2 = f.cx0x * f.cx0x + f.cx0y * f.cx0y + f.cx0z * f.cx0z
+    f.inv_cx = 1.0 / torch.sqrt(torch.clamp(f.q2, min=1e-12))
+    f.cxx, f.cxy, f.cxz = (-f.cx0x * f.inv_cx, -f.cx0y * f.inv_cx,
+                           -f.cx0z * f.inv_cx)
+    f.nn = f.ux * f.ux + f.uy * f.uy + f.uz * f.uz
+    f.nv = f.ux * f.vx + f.uy * f.vy + f.uz * f.vz
+    f.v_cx = f.vx * f.cxx + f.vy * f.cxy + f.vz * f.cxz
+    f.v_cy = f.vx * f.cyx + f.vy * f.cyy + f.vz * f.cyz
+    f.n_cy = (f.uy - f.uy * f.nn) * f.inv_cy
+    f.r = (rough + 1.0) * 0.5
+    f.kg = (f.r + 1.0) * (f.r + 1.0) * (1.0 / 8.0)
+    f.a2 = (f.r * f.r) * (f.r * f.r)
+    f.ndv = torch.clamp(f.nv, 0.0, 1.0)
+    f.nom1 = f.ndv * (1.0 - f.kg) + f.kg
+    return f
+
+
+def _shade(f, c, f0):
+    """``shade`` of csrc/sg_common.cuh: per-pixel columns [N, 1] against
+    direction rows c [4, D] -> [N, D] terms."""
+    col = {k: v[:, None] for k, v in vars(f).items()}
+    lx, ly, lz, wq = c
+    s = SimpleNamespace()
+    s.vl = lx * col["v_cx"] + ly * col["v_cy"] + lz * col["nv"]
+    s.h2 = (1.0 + s.vl) * 0.5
+    s.inv_h = 1.0 / torch.sqrt(torch.clamp(s.h2, min=1e-6))
+    s.vdh = s.h2 * s.inv_h
+    s.ex2 = torch.exp2((-5.55472 * s.vdh - 6.98316) * s.vdh)
+    s.frac0 = f0 + (1.0 - f0) * s.ex2
+    s.nl = ly * col["n_cy"] + lz * col["nn"]
+    s.t = (col["nv"] + s.nl) * 0.5 * s.inv_h
+    s.ndh = torch.clamp(s.t, 0.0, 1.0)
+    s.ndl = torch.clamp(s.nl, 0.0, 1.0)
+    s.nom0 = s.ndh * s.ndh * (col["a2"] - 1.0) + 1.0
+    s.nom2 = s.ndl * (1.0 - col["kg"]) + col["kg"]
+    s.nomr = 4.0 * math.pi * s.nom0 * s.nom0 * col["nom1"] * s.nom2
+    s.nom = torch.clamp(s.nomr, 1e-6, 4.0 * math.pi)
+    s.spec = col["a2"] * s.frac0 / s.nom
+    s.ndl_w = s.ndl * wq
+    s.spec_w = s.spec * s.ndl_w
+    return col, s
+
+
+def _shade_adjoint(f, col, s, c, f0, e_d, e_s):
+    """``shade_adjoint`` of csrc/sg_common.cuh, summed over directions."""
+    lx, ly, lz, wq = c
+    four_pi = 4.0 * math.pi
+    g_ndlw = e_d + s.spec * e_s
+    g_spec = s.ndl_w * e_s
+    g_ndl = g_ndlw * wq
+    frac = col["a2"] * s.frac0
+    g_frac = g_spec / s.nom
+    g_nom = -g_spec * frac / (s.nom * s.nom)
+    g_nomr = g_nom * _inside(s.nomr, 1e-6, four_pi)
+    cg = four_pi * g_nomr
+    g_nom0 = cg * 2.0 * s.nom0 * col["nom1"] * s.nom2
+    g_nom1 = cg * s.nom0 * s.nom0 * s.nom2
+    g_nom2 = cg * s.nom0 * s.nom0 * col["nom1"]
+    g_a2 = g_frac * s.frac0 + g_nom0 * s.ndh * s.ndh
+    g_frac0 = g_frac * col["a2"]
+    g_vdh = (g_frac0 * (1.0 - f0) * s.ex2 * math.log(2.0)
+             * (-2.0 * 5.55472 * s.vdh - 6.98316))
+    g_ndh = g_nom0 * 2.0 * s.ndh * (col["a2"] - 1.0)
+    g_ndl = g_ndl + g_nom2 * (1.0 - col["kg"])
+    g_kg = g_nom2 * (1.0 - s.ndl) + g_nom1 * (1.0 - col["ndv"])
+    g_nl = g_ndl * _inside(s.nl, 0.0, 1.0)
+    g_t = g_ndh * _inside(s.t, 0.0, 1.0)
+    g_nv = (g_t * 0.5 * s.inv_h
+            + g_nom1 * (1.0 - col["kg"]) * _inside(col["nv"], 0.0, 1.0))
+    g_nl = g_nl + g_t * 0.5 * s.inv_h
+    g_invh = g_t * (col["nv"] + s.nl) * 0.5 + g_vdh * s.h2
+    g_h2 = (g_vdh * s.inv_h
+            + g_invh * -0.5 * s.inv_h * s.inv_h * s.inv_h
+            * _above(s.h2, 1e-6))
+    g_vl = 0.5 * g_h2
+    g_nv = g_nv + g_vl * lz
+    return SimpleNamespace(
+        r=torch.sum(g_a2 * 4.0 * col["r"] ** 3
+                    + g_kg * (col["r"] + 1.0) * 0.25, dim=-1),
+        nv=torch.sum(g_nv, dim=-1),
+        v_cx=torch.sum(g_vl * lx, dim=-1),
+        v_cy=torch.sum(g_vl * ly, dim=-1),
+        n_cy=torch.sum(g_nl * ly, dim=-1),
+        nn=torch.sum(g_nl * lz, dim=-1),
+    )
+
+
+def _frame_adjoint(f, g):
+    """``frame_adjoint`` of csrc/sg_common.cuh: (d_normal [N,3], d_rough
+    [N])."""
+    d_rough = 0.5 * g.r
+    gux = torch.zeros_like(g.n_cy)
+    guy = g.n_cy * (1.0 - f.nn) * f.inv_cy
+    guz = torch.zeros_like(g.n_cy)
+    g_nn = g.nn - g.n_cy * f.uy * f.inv_cy
+    g_invcy = g.n_cy * (f.uy - f.uy * f.nn)
+    gux = gux + 2.0 * g_nn * f.ux + g.nv * f.vx
+    guy = guy + 2.0 * g_nn * f.uy + g.nv * f.vy
+    guz = guz + 2.0 * g_nn * f.uz + g.nv * f.vz
+    gcyx, gcyy, gcyz = g.v_cy * f.vx, g.v_cy * f.vy, g.v_cy * f.vz
+    gx0x = -g.v_cx * f.vx * f.inv_cx
+    gx0y = -g.v_cx * f.vy * f.inv_cx
+    gx0z = -g.v_cx * f.vz * f.inv_cx
+    g_invcx = -g.v_cx * (f.vx * f.cx0x + f.vy * f.cx0y + f.vz * f.cx0z)
+    g_q2 = g_invcx * -0.5 * f.inv_cx ** 3 * _above(f.q2, 1e-12)
+    gx0x = gx0x + 2.0 * g_q2 * f.cx0x
+    gx0y = gx0y + 2.0 * g_q2 * f.cx0y
+    gx0z = gx0z + 2.0 * g_q2 * f.cx0z
+    # cx0 = cy x u
+    gcyx = gcyx + f.uy * gx0z - f.uz * gx0y
+    gcyy = gcyy + f.uz * gx0x - f.ux * gx0z
+    gcyz = gcyz + f.ux * gx0y - f.uy * gx0x
+    gux = gux + gx0y * f.cyz - gx0z * f.cyy
+    guy = guy + gx0z * f.cyx - gx0x * f.cyz
+    guz = guz + gx0x * f.cyy - gx0y * f.cyx
+    gy0x, gy0y, gy0z = gcyx * f.inv_cy, gcyy * f.inv_cy, gcyz * f.inv_cy
+    g_invcy = g_invcy + gcyx * f.cy0x + gcyy * f.cy0y + gcyz * f.cy0z
+    g_q1 = g_invcy * -0.5 * f.inv_cy ** 3 * _above(f.q1, 1e-12)
+    gy0x = gy0x + 2.0 * g_q1 * f.cy0x
+    gy0y = gy0y + 2.0 * g_q1 * f.cy0y
+    gy0z = gy0z + 2.0 * g_q1 * f.cy0z
+    gux = gux - gy0x * f.uy
+    guy = guy - gy0x * f.ux - 2.0 * gy0y * f.uy - gy0z * f.uz
+    guz = guz - gy0z * f.uy
+    g_invn = gux * f.nx + guy * f.ny + guz * f.nz
+    g_s = g_invn * -0.5 * f.inv_n ** 3 * _inside(f.s, 1e-6, 1.0)
+    d_normal = torch.stack([gux * f.inv_n + 2.0 * g_s * f.nx,
+                            guy * f.inv_n + 2.0 * g_s * f.ny,
+                            guz * f.inv_n + 2.0 * g_s * f.nz], dim=-1)
+    return d_normal, d_rough
+
+
+def render_sg_bwd_plain(albedo, normal, rough, axis, lamb, weight,
+                        grad_diffuse, grad_specular, fov_deg=57.0, f0=0.05,
+                        env_height=8, env_width=16):
+    """The backward kernel's function in plain PyTorch: the explicit
+    adjoint of the TPU kernel's shading math (``_shade_tile_math``, with its
+    |normal| <= 1 shortcut algebra), in the order of ``render_sg_bwd_kernel``
+    (csrc/sg_render.cu).  Returns the gradients of albedo, normal, rough,
+    axis, lamb and weight, shaped like them."""
+    b, h, w = albedo.shape[:3]
+    k = lamb.shape[-1]
+    n = b * h * w
+    # the constants in the inputs' dtype from their float64 values, as the
+    # plain forward takes them
+    c = torch.as_tensor(_dir_table(env_height, env_width).T,
+                        dtype=albedo.dtype, device=albedo.device)  # [4,D]
+    v = torch.as_tensor(view_dirs(h, w, fov_deg).reshape(-1, 3),
+                        dtype=albedo.dtype, device=albedo.device)
+    v = v.expand(b, h * w, 3).reshape(n, 3)
+    f = _frame(normal.reshape(n, 3), rough.reshape(n), v)
+    gd = grad_diffuse.reshape(n, 3)
+    gs = grad_specular.reshape(n, 3)
+    gda = gd * albedo.reshape(n, 3) * (1.0 / math.pi)
+    # (A) radiance adjoint per direction
+    col, s = _shade(f, c, f0)
+    genv = (gda[:, None, :] * s.ndl_w[..., None]
+            + gs[:, None, :] * s.spec_w[..., None])  # [N,D,3]
+    # (B) lobes: the mixture and its adjoint
+    ax, lm, wt = axis.reshape(n, k, 3), lamb.reshape(n, k), weight.reshape(
+        n, k, 3)
+    env = sg_to_envmap(ax, lm, wt, env_height, env_width)  # [N,D,3]
+    d_axis, d_lamb, d_weight = sg_envmap_bwd_plain(ax, lm, wt, genv,
+                                                   env_height, env_width)
+    # (C) shading adjoint against the mixture, then the per-pixel chain
+    e_d = torch.einsum("nc,ndc->nd", gda, env)
+    e_s = torch.einsum("nc,ndc->nd", gs, env)
+    fg = _shade_adjoint(f, col, s, c, f0, e_d, e_s)
+    sd = torch.einsum("nd,ndc->nc", s.ndl_w, env)
+    d_normal, d_rough = _frame_adjoint(f, fg)
+    d_albedo = gd * (1.0 / math.pi) * sd
+    return (d_albedo.reshape(albedo.shape), d_normal.reshape(normal.shape),
+            d_rough.reshape(rough.shape), d_axis.reshape(axis.shape),
+            d_lamb.reshape(lamb.shape), d_weight.reshape(weight.shape))
+
+
+def _render_launch_inputs(fn, albedo, normal, rough, axis, lamb, weight,
+                          fov_deg, env_height, env_width):
+    b, h, w, k = _shading_inputs(fn, albedo, normal, rough, axis, lamb,
+                                 weight)
+    lib = _lib("sg_render")
+    if lib.render_sg_smem_bytes(k) > _SMEM_LIMIT:
+        raise ValueError(f"{fn}: K={k} exceeds shared memory")
+    dev = albedo.device
+    consts = (_view(h, w, float(fov_deg), dev),
+              _dir_consts(env_height, env_width, dev))
+    return lib, (b, h, w, k), consts
+
+
+def render_sg_fwd(albedo, normal, rough, axis, lamb, weight, fov_deg=57.0,
+                  f0=0.05, env_height=8, env_width=16):
+    """Launch the forward kernel (CUDA) or run :func:`render_sg_plain`
+    (CPU).  Not differentiable; :func:`render_sg` is."""
+    if not _on_card("render_sg_fwd", albedo):
+        return render_sg_plain(albedo, normal, rough, axis, lamb, weight,
+                               fov_deg, f0, env_height, env_width)
+    lib, (b, h, w, k), (view, dirs) = _render_launch_inputs(
+        "render_sg_fwd", albedo, normal, rough, axis, lamb, weight, fov_deg,
+        env_height, env_width)
+    diffuse = torch.empty_like(albedo)
+    specular = torch.empty_like(albedo)
+    n = b * h * w
+    if n == 0:
+        return diffuse, specular
+    _raise_on("render_sg_fwd", lib.render_sg_fwd_f32(
+        albedo.data_ptr(), normal.data_ptr(), rough.data_ptr(),
+        axis.data_ptr(), lamb.data_ptr(), weight.data_ptr(),
+        view.data_ptr(), dirs.data_ptr(), diffuse.data_ptr(),
+        specular.data_ptr(), n, h * w, k, env_height * env_width, float(f0),
+        _stream(albedo.device),
+    ))
+    render_sg_fwd.launches += 1
+    return diffuse, specular
+
+
+def render_sg_bwd(albedo, normal, rough, axis, lamb, weight, grad_diffuse,
+                  grad_specular, fov_deg=57.0, f0=0.05, env_height=8,
+                  env_width=16):
+    """Launch the backward kernel (CUDA) or run
+    :func:`render_sg_bwd_plain` (CPU).  Returns the six input gradients."""
+    if not _on_card("render_sg_bwd", albedo):
+        return render_sg_bwd_plain(albedo, normal, rough, axis, lamb, weight,
+                                   grad_diffuse, grad_specular, fov_deg, f0,
+                                   env_height, env_width)
+    lib, (b, h, w, k), (view, dirs) = _render_launch_inputs(
+        "render_sg_bwd", albedo, normal, rough, axis, lamb, weight, fov_deg,
+        env_height, env_width)
+    d = env_height * env_width
+    if d > _MAX_BWD_DIRS:
+        raise ValueError(f"render_sg_bwd: {d} directions > {_MAX_BWD_DIRS}")
+    _check("render_sg_bwd", albedo.device, {
+        "grad_diffuse": (grad_diffuse, (b, h, w, 3)),
+        "grad_specular": (grad_specular, (b, h, w, 3)),
+    })
+    grads = [torch.empty_like(x)
+             for x in (albedo, normal, rough, axis, lamb, weight)]
+    n = b * h * w
+    if n == 0:
+        return tuple(grads)
+    _raise_on("render_sg_bwd", lib.render_sg_bwd_f32(
+        albedo.data_ptr(), normal.data_ptr(), rough.data_ptr(),
+        axis.data_ptr(), lamb.data_ptr(), weight.data_ptr(),
+        view.data_ptr(), dirs.data_ptr(), grad_diffuse.data_ptr(),
+        grad_specular.data_ptr(), *(g.data_ptr() for g in grads),
+        n, h * w, k, d, float(f0), _stream(albedo.device),
+    ))
+    render_sg_bwd.launches += 1
+    return tuple(grads)
+
+
+render_sg_fwd.launches = 0
+render_sg_bwd.launches = 0
+
+
+class _RenderSG(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, albedo, normal, rough, axis, lamb, weight, fov_deg, f0,
+                env_height, env_width):
+        ctx.save_for_backward(albedo, normal, rough, axis, lamb, weight)
+        ctx.cfg = (fov_deg, f0, env_height, env_width)
+        return render_sg_fwd(albedo, normal, rough, axis, lamb, weight,
+                             *ctx.cfg)
+
+    @staticmethod
+    def backward(ctx, grad_diffuse, grad_specular):
+        grads = render_sg_bwd(*ctx.saved_tensors, grad_diffuse.contiguous(),
+                              grad_specular.contiguous(), *ctx.cfg)
+        return (*grads, None, None, None, None)
+
+
+def render_sg(albedo, normal, rough, axis, lamb, weight, fov_deg=57.0,
+              f0=0.05, env_height=8, env_width=16):
+    """Fused SG decode + shading, NHWC API, differentiable (training).
+
+    albedo [B,H,W,3], normal [B,H,W,3], rough [B,H,W,1], axis
+    [B,H,W,K,3], lamb [B,H,W,K] (physical), weight [B,H,W,K,3]
+    (physical).  Returns (diffuse, specular) [B,H,W,3].  Gradients reach
+    all six inputs; the view direction gets none.  On CUDA tensors the
+    forward and backward are the kernels of ``csrc/sg_render.cu`` (D <=
+    128), on CPU tensors the plain forward and the plain adjoint.
+
+    PRECONDITION: |normal| <= 1 per pixel, as for the JAX kernel (pooled
+    unit normals only shrink); the backward's shortcut algebra assumes it.
+    """
+    args = (x.contiguous() for x in (albedo, normal, rough, axis, lamb,
+                                     weight))
+    return _RenderSG.apply(*args, float(fov_deg), float(f0), int(env_height),
+                           int(env_width))

@@ -1,9 +1,11 @@
-"""Cascade BRDF stack: the encoder and its four decoder heads as one module.
+"""Cascade BRDF stack: the encoder and its four decoder heads as one module,
+and its forward and masked errors on a training batch.
 
-The counterpart of the JAX package's ``pipeline/brdf.py:BRDFNets``; here
-the bundle owns its weights.  Submodule names (``encoder``, ``albedo``,
-``normal``, ``rough``, ``depth``) prefix the reference's per-network
-state-dict names.
+The counterpart of the JAX package's ``pipeline/brdf.py``; here the bundle
+owns its weights.  Submodule names (``encoder``, ``albedo``, ``normal``,
+``rough``, ``depth``) prefix the reference's per-network state-dict names.
+Batches and predictions are NHWC, as in the JAX package; the networks run
+in NCHW.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from inverserenderingofindoorscene_torch.core.imageops import to_nchw, to_nhwc
+from inverserenderingofindoorscene_torch.losses.masked import brdf_errors
 from inverserenderingofindoorscene_torch.models.mgnet import (
     Decoder,
     Encoder,
@@ -45,3 +49,39 @@ class BRDFNets(nn.Module):
         Returns the raw head outputs, NCHW, keyed by decoder name."""
         feats = self.encoder(inp)
         return {name: getattr(self, name)(im, feats) for name in HEADS}
+
+
+def brdf_forward(nets: BRDFNets, batch: dict) -> dict:
+    """Encoder + 4 heads on ``batch["im"]`` [B,H,W,3]; NHWC preds.
+
+    albedo and depth are mapped from the tanh range to [0,1] with
+    0.5(x+1); normal is unit, rough in [-1,1].  Cascade 0 only: the
+    cascade-1 input assembly is not ported yet."""
+    if nets.cascade_level != 0:
+        raise NotImplementedError("brdf_forward: the cascade-1 input "
+                                  "(prepare_cascade_input) is not ported")
+    im = to_nchw(batch["im"])
+    out = nets(im, im)
+    preds = {
+        "albedo": 0.5 * (out["albedo"] + 1.0),
+        "normal": out["normal"],
+        "rough": out["rough"],
+        "depth": 0.5 * (out["depth"] + 1.0),
+    }
+    return {k: to_nhwc(v) for k, v in preds.items()}
+
+
+def brdf_step(nets: BRDFNets, batch: dict):
+    """Forward + masked errors.  Returns (preds, errors)."""
+    preds = brdf_forward(nets, batch)
+    errors, _ = brdf_errors(preds["albedo"], preds["normal"], preds["rough"],
+                            preds["depth"], batch)
+    return preds, errors
+
+
+def brdf_total_error(errors: dict, albedo_w: float = 1.5,
+                     normal_w: float = 1.0, rough_w: float = 0.5,
+                     depth_w: float = 0.5) -> torch.Tensor:
+    """4 albedo_w albedo + normal_w normal + rough_w rough + depth_w depth."""
+    return (4.0 * albedo_w * errors["albedo"] + normal_w * errors["normal"]
+            + rough_w * errors["rough"] + depth_w * errors["depth"])

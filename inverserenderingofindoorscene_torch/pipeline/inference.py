@@ -18,7 +18,11 @@ import numpy as np
 import torch
 
 from inverserenderingofindoorscene_torch.core import sg
-from inverserenderingofindoorscene_torch.core.imageops import resize_bilinear
+from inverserenderingofindoorscene_torch.core.imageops import (
+    resize_bilinear,
+    to_nchw,
+    to_nhwc,
+)
 from inverserenderingofindoorscene_torch.core.render_layer import (
     RenderLayer,
     pool_nhwc,
@@ -32,22 +36,14 @@ from inverserenderingofindoorscene_torch.pipeline.light import (
 )
 
 
-def _nchw(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 3, 1, 2)
-
-
-def _nhwc(x: torch.Tensor) -> torch.Tensor:
-    return x.permute(0, 2, 3, 1)
-
-
 def predict_brdf(brdf_nets, im, extra=None):
     """Encoder + decoders with the serving mean normalization.
 
     im [B,H,W,3]; ``extra`` the cascade-1 NHWC maps of
     :func:`_cascade1_extra`.  Returns NHWC albedo/normal/rough/depth."""
-    im_c = _nchw(im)
+    im_c = to_nchw(im)
     inp = im_c if extra is None else torch.cat(
-        [im_c] + [_nchw(e) for e in extra], dim=1
+        [im_c] + [to_nchw(e) for e in extra], dim=1
     )
     out = brdf_nets(im_c, inp)
     preds = {
@@ -56,7 +52,7 @@ def predict_brdf(brdf_nets, im, extra=None):
         "rough": out["rough"],
         "depth": mean_normalize(0.5 * (out["depth"] + 1.0)),
     }
-    return {k: _nhwc(v) for k, v in preds.items()}
+    return {k: to_nhwc(v) for k, v in preds.items()}
 
 
 def predict_light_core(light_nets, im, preds, im_small, fov, env_pre=None,
@@ -69,12 +65,14 @@ def predict_light_core(light_nets, im, preds, im_small, fov, env_pre=None,
     instead of the plain ``sg_to_envmap`` + ``RenderLayer`` path."""
     eh, ew = im_small.shape[1:3]
     inp = light_input_from_preds(
-        _nchw(im), {k: _nchw(v) for k, v in preds.items()}, (eh * 4, ew * 4)
+        to_nchw(im), {k: to_nchw(v) for k, v in preds.items()},
+        (eh * 4, ew * 4)
     )
-    out = light_nets(inp, (eh, ew), None if env_pre is None else _nchw(env_pre))
-    axis_flat = _nhwc(out["axis"]).contiguous()
-    lamb01 = _nhwc(out["lamb"]).contiguous()
-    weight01 = _nhwc(out["weight"]).contiguous()
+    out = light_nets(inp, (eh, ew),
+                     None if env_pre is None else to_nchw(env_pre))
+    axis_flat = to_nhwc(out["axis"]).contiguous()
+    lamb01 = to_nhwc(out["lamb"]).contiguous()
+    weight01 = to_nhwc(out["weight"]).contiguous()
     b, k = lamb01.shape[0], lamb01.shape[-1]
     sg_flat = torch.cat([axis_flat, lamb01, weight01], dim=-1)
     axis = axis_flat.reshape(b, eh, ew, k, 3)
@@ -154,7 +152,7 @@ def _cascade1_extra(im, preds, diffuse, specular):
     hw = im.shape[1:3]
 
     def up(x):
-        return _nhwc(resize_bilinear(_nchw(x), hw))
+        return to_nhwc(resize_bilinear(to_nchw(x), hw))
 
     return [
         up(preds["albedo"]),

@@ -1,9 +1,10 @@
 """Lighting stack: the light encoder and its three SG decoders as one
-module, and the assembly of the light-encoder input.
+module, the assembly of the light-encoder input, and the forward and
+losses of lighting training.
 
 The counterpart of the JAX package's ``pipeline/light.py`` (``LightNets``,
-``mean_normalize``, ``light_input_from_preds``); the training step comes
-with a later part of the port.
+``mean_normalize``, ``light_input_from_preds``, ``light_forward``,
+``light_step``).  The cascade-1 light step is not ported yet.
 """
 
 from __future__ import annotations
@@ -13,12 +14,30 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from inverserenderingofindoorscene_torch.core.imageops import resize_bilinear
+from inverserenderingofindoorscene_torch.core import sg
+from inverserenderingofindoorscene_torch.core.imageops import (
+    resize_bilinear,
+    to_nchw,
+    to_nhwc,
+)
+from inverserenderingofindoorscene_torch.core.render_layer import (
+    RenderLayer,
+    pool_nhwc,
+)
+from inverserenderingofindoorscene_torch.losses.masked import (
+    envmap_reconst_error,
+    render_error,
+)
 from inverserenderingofindoorscene_torch.models.lightnet import (
     LightDecoder,
     LightEncoder,
 )
 from inverserenderingofindoorscene_torch.models.mgnet import init_weights
+from inverserenderingofindoorscene_torch.ops.sg_render import (
+    render_sg,
+    sg_envmap,
+)
+from inverserenderingofindoorscene_torch.pipeline.brdf import brdf_step
 
 # decoder name -> mode
 SG_HEADS = {"axis": 0, "lamb": 1, "weight": 2}
@@ -84,3 +103,104 @@ def light_input_from_preds(im: torch.Tensor, preds: dict,
         dim=1,
     )
     return resize_bilinear(stacked, light_hw)
+
+
+def light_forward(nets: LightNets, im: torch.Tensor, brdf_preds: dict,
+                  env_pre: Optional[torch.Tensor] = None) -> dict:
+    """Light encoder + 3 SG decoders on NHWC inputs.
+
+    preds' albedo/depth must already be mean-normalized.  The 11-channel
+    input (and env_pre) are detached, as in the reference.  Returns axis
+    [B,R,C,K,3], lamb01 [B,R,C,K], weight01 [B,R,C,K,3] and the flat
+    ``sg_flat`` [B,R,C,7K] ([axis | lamb | weight]), all NHWC."""
+    inp = light_input_from_preds(
+        to_nchw(im), {k: to_nchw(v) for k, v in brdf_preds.items()},
+        nets.light_hw,
+    ).detach()
+    if nets.cascade_level > 0:
+        env_pre = to_nchw(env_pre.detach())
+    r, c = nets.env_rows, nets.env_cols
+    out = {k: to_nhwc(v) for k, v in nets(inp, (r, c), env_pre).items()}
+    b, k = out["lamb"].shape[0], nets.sg_num
+    return {
+        "axis": out["axis"].reshape(b, r, c, k, 3),
+        "lamb01": out["lamb"],
+        "weight01": out["weight"].reshape(b, r, c, k, 3),
+        "sg_flat": torch.cat([out["axis"], out["lamb"], out["weight"]],
+                             dim=-1),
+    }
+
+
+def light_step(brdf_nets, light_nets: LightNets, batch: dict,
+               offset: float = 1.0, use_kernels: bool = True):
+    """The BRDF + light forward and the losses of lighting training.
+
+    batch: NHWC tensors im/albedo/normal/rough/depth/seg_brdf/seg_all
+    (image resolution), env_gt [B,R,C,D,3] and env_ind [B,1].  The BRDF
+    stack is frozen: it runs under ``torch.no_grad()`` and its four errors
+    are reported only.  ``use_kernels`` mirrors the JAX package's
+    ``use_pallas``: the SG decode of the reconstruction loss and the
+    decode + shading of the render loss go through ``ops.sg_render``'s
+    ``sg_envmap`` and ``render_sg`` (the CUDA kernels on CUDA tensors)
+    instead of ``sg_to_envmap`` + ``RenderLayer``.  Cascade 0 only.
+
+    Returns (losses, aux): losses albedo/normal/rough/depth/reconst/render.
+    """
+    with torch.no_grad():
+        preds, errors = brdf_step(brdf_nets, batch)
+    preds = dict(preds)
+    preds["albedo"] = mean_normalize(preds["albedo"])
+    preds["depth"] = mean_normalize(preds["depth"])
+
+    im = batch["im"]
+    sg_out = light_forward(light_nets, im, preds)
+    r, c = light_nets.env_rows, light_nets.env_cols
+    eh, ew = light_nets.env_height, light_nets.env_width
+    im_small = pool_nhwc(im, (r, c))
+    seg_small = pool_nhwc(batch["seg_brdf"], (r, c))
+
+    env_gt = batch["env_gt"]  # [B,R,C,D,3]
+    not_dark = torch.mean(env_gt, dim=(-2, -1))[..., None] > 0.001
+    env_ind = batch["env_ind"].reshape(-1, 1, 1, 1)
+    seg_env = seg_small * env_ind * not_dark.to(im.dtype)  # [B,R,C,1]
+
+    axis = sg_out["axis"]
+    lamb = sg.unsquash(sg_out["lamb01"])
+    weight = sg.unsquash(sg_out["weight01"])
+    if use_kernels:
+        env_pred = sg_envmap(axis, lamb, weight, eh, ew)
+    else:
+        env_pred = sg.sg_to_envmap(axis, lamb, weight, eh, ew)
+    reconst_err, env_scaled = envmap_reconst_error(env_pred, env_gt, seg_env,
+                                                   offset)
+
+    albedo = preds["albedo"].detach()
+    if use_kernels:
+        # decode + shade in one kernel; env_pred above only feeds the
+        # reconstruction loss
+        diffuse, specular = render_sg(
+            pool_nhwc(albedo, (r, c)), pool_nhwc(preds["normal"], (r, c)),
+            pool_nhwc(preds["rough"], (r, c)), axis, lamb, weight,
+            env_height=eh, env_width=ew,
+        )
+    else:
+        layer = RenderLayer(env_rows=r, env_cols=c, env_height=eh,
+                            env_width=ew)
+        diffuse, specular = layer.forward_env(albedo, preds["normal"],
+                                              preds["rough"], env_pred)
+    render_err, rendered = render_error(diffuse, specular, im_small,
+                                        seg_small)
+
+    losses = dict(errors)
+    losses["reconst"] = reconst_err
+    losses["render"] = render_err
+    aux = {
+        "brdf_preds": preds,
+        "sg": sg_out,
+        "env_pred": env_pred,
+        "env_scaled": env_scaled,
+        "diffuse": diffuse,
+        "specular": specular,
+        "rendered": rendered,
+    }
+    return losses, aux

@@ -11,8 +11,9 @@ params)``), become ``state_dict``s of :class:`BRDFNets` / :class:`LightNets`:
     ``preProcess.1/.2/.5/.6``).
 
 Every flax leaf maps to exactly one key, and an unknown layer raises, so
-the result loads with ``load_state_dict(strict=True)``.  numpy only: the
-port stays free of JAX.
+the result loads with ``load_state_dict(strict=True)``.  An optax Adam
+state of the light params becomes a ``torch.optim.Adam`` state dict
+(:func:`light_adam_state_dict`).  numpy only: the port stays free of JAX.
 """
 
 from __future__ import annotations
@@ -79,8 +80,43 @@ def brdf_state_dict(params: dict) -> dict:
 
 def light_state_dict(params: dict) -> dict:
     """JAX ``LightNets`` params -> port ``LightNets`` state dict (either
-    cascade level: the cascade-1 encoder only has a wider ``conv1``)."""
+    cascade level: the cascade-1 encoder only has a wider ``conv1``).
+    Any tree shaped like the params (gradients, Adam moments) converts the
+    same way."""
     sd = module_state_dict(params["encoder"], LIGHT_ENCODER_NAMES, "encoder.")
     for head in ("axis", "lamb", "weight"):
         sd.update(module_state_dict(params[head], DECODER_NAMES, f"{head}."))
+    return sd
+
+
+def light_adam_state_dict(optimizer: torch.optim.Adam, module, mu: dict,
+                          nu: dict, count: int) -> dict:
+    """An optax Adam state of JAX ``LightNets`` params -> the
+    ``state_dict`` of ``optimizer``, a ``torch.optim.Adam`` over
+    ``module``'s (a port ``LightNets``) parameters.
+
+    ``mu`` and ``nu`` are optax's first and second moments as numpy trees
+    shaped like the params, ``count`` its step count.  The moments are
+    elementwise, so they take the params' own layout change (HWIO ->
+    OIHW).  optax and torch apply the same update from these (bias
+    correction by the count, eps outside the square root), so a JAX run
+    resumed from its ``TrainState`` continues in the port: load the
+    params with :func:`light_state_dict` and this with
+    ``optimizer.load_state_dict``."""
+    moments = (light_state_dict(mu), light_state_dict(nu))
+    name_of = {id(p): n for n, p in module.named_parameters()}
+    sd = optimizer.state_dict()
+    state, index = {}, 0
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            name = name_of[id(p)]
+            state[index] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": moments[0][name].to(p.device),
+                "exp_avg_sq": moments[1][name].to(p.device),
+            }
+            index += 1
+    if index != len(moments[0]):
+        raise ValueError(f"{len(moments[0])} moments for {index} parameters")
+    sd["state"] = state
     return sd
