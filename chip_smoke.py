@@ -10,19 +10,28 @@ Phases, each fatal on failure:
   3. kernels: each kernel's wrapper against its plain PyTorch version on
      the card (a backward also against torch.autograd of the plain
      forward), at its main-path shape, a ragged 10x13 and K=4, with times
-     and bounds;
-  4. serving: the two-cascade ``InverseRenderer`` (level 2, lighting on)
-     at the reference operating point (image 240x320, lighting grid
+     and bounds; the bilateral blur bit for bit on the grid of a noisy
+     240x320 guide at C=3 and C=1 and on a ragged 10x13 one, with the
+     time of torch.sparse.mm beside it;
+  4. serving: the two-cascade ``InverseRenderer`` (level 2, lighting on,
+     bilateral refinement of both levels with seeded random confidence
+     nets) at the reference operating point (image 240x320, lighting grid
      120x160, 12 SG lobes, 8x16 envmap) with seeded random weights; the
-     launch counts show the requests went through ``render_sg_env``, each
-     cascade's lighting agrees with the plain route on the same inputs,
-     and the plain route end to end gives the same cascade-0 maps;
+     launch counts show the requests went through ``render_sg_env`` and
+     ``bilateral_blur``, each cascade's lighting and refinement agree with
+     the plain route on the same inputs, and the plain route end to end
+     gives the same cascade-0 maps;
   5. training: the cascade-0 lighting train step at full width (B=5, image
      240x320, grid 120x160, light input 480x640) from the same seeded
      weights on the kernel route and the plain route; step 1's losses
      and light gradients agree, then 20 steps on each route are timed,
      descend, and launch each training kernel once a step on the kernel
-     route.
+     route;
+  6. bilateral training: the bilateral train step at full width (B=2,
+     image 240x320, frozen cascade-0 BRDF nets), both routes from the
+     same seeded weights; step 1's losses and confidence-net gradients
+     agree, then 20 steps on each route are timed, descend, and launch
+     ``bilateral_blur`` 103 times an image a step on the kernel route.
 The second-to-last line of output is the kernels' JSON record, the last
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits non-zero
 before printing any result.
@@ -42,15 +51,22 @@ import numpy as np
 import torch
 
 from inverserenderingofindoorscene_torch.data.synthetic import synthetic_batch
-from inverserenderingofindoorscene_torch.ops import build, sg_render
+from inverserenderingofindoorscene_torch.ops import bilateral, build, sg_render
+from inverserenderingofindoorscene_torch.pipeline.bilateral import (
+    BS_MODES,
+    BilateralNets,
+    normalized_guide,
+)
 from inverserenderingofindoorscene_torch.pipeline.brdf import BRDFNets
 from inverserenderingofindoorscene_torch.pipeline.inference import (
     InverseRenderer,
     predict_light,
     predict_light_core,
+    refine_bs,
 )
 from inverserenderingofindoorscene_torch.pipeline.light import LightNets
 from inverserenderingofindoorscene_torch.train.steps import (
+    make_bilateral_train_step,
     make_light_train_step,
 )
 
@@ -62,6 +78,7 @@ N_DIRS = 128  # the 8x16 envmap
 TRAIN_B = 5  # the JAX light-training CLI's batch
 TRAIN_LR = 1e-4  # the reference's Adam rate
 N_TRAIN_STEPS = 20
+BS_TRAIN_B = 2  # the JAX bilateral-training CLI's batch
 _CSRC = "inverserenderingofindoorscene_torch/ops/csrc/"
 _TPU = "inverserenderingofindoorscene_tpu/ops/sg_render.py:"
 # kernel -> (its source, the TPU kernel it replaces)
@@ -71,7 +88,20 @@ KERNELS = {
     "sg_envmap_bwd": (_CSRC + "sg_envmap.cu", _TPU + "520"),
     "render_sg_fwd": (_CSRC + "sg_render.cu", _TPU + "189"),
     "render_sg_bwd": (_CSRC + "sg_render.cu", _TPU + "197"),
+    "bilateral_blur": (_CSRC + "bilateral_blur.cu",
+                       "scripts/profile_blur_kernel.py:76"),
 }
+# kernel -> its wrapper, which counts its launches
+WRAPPERS = {**{name: getattr(sg_render, name) for name in KERNELS
+               if name != "bilateral_blur"},
+            "bilateral_blur": bilateral.bilateral_blur}
+# bilateral_blur launches, from the code: per image, a forward solve is a
+# bistochastization (10 + 1 blurs) and 1 + cg_maxiter products with A, a
+# gradient solve 1 + cg_maxiter more; the images of a batch are solved one
+# by one.  Serving refines 3 modes at each of 2 levels: 68 a level.
+_MAXITER = [bilateral.MODE_PARAMS[m].cg_maxiter for _, m in BS_MODES.values()]
+BLURS_FWD = sum(11 + 1 + it for it in _MAXITER)  # 68 an image
+BLURS_GRAD = sum(1 + it for it in _MAXITER)  # 35 an image
 
 # data-sheet device-memory rate and f32 (non-tensor-core) peak, by card
 # name; the SXM part's figures are the default
@@ -117,6 +147,17 @@ GRAD_REL_L2 = {"normal": 1e-2, "rough": 1e-2, "albedo": 1e-3, "axis": 1e-3,
 # parameter's relative L2 distance (measured on the H100: reconst 0,
 # render 2.4e-6, grads 3.3e-6)
 STEP1_TOL = {"reconst": 1e-5, "render": 5e-5, "grads": 1e-4}
+# a level's refinement, kernel route vs plain blur on the same predictions:
+# (rtol, atol), the JAX tests' tolerance for a reordered reduction of the
+# same solve (tests/test_bilateral.py:233-237).  The blur is bit-equal and
+# the splat sums in one order, so the routes agree bit for bit on the H100.
+REFINE_TOL = (2e-4, 2e-5)
+# bilateral training step 1, kernel route vs plain route: each loss as a
+# relative difference, the confidence-net gradients as the worst
+# parameter's relative L2 distance (measured on the H100: losses equal,
+# gradients 9.0e-7, from cuDNN's and the upsample backward's reordered
+# sums; the solves are bit-equal)
+BS_STEP1_TOL = {"losses": 1e-5, "grads": 1e-4}
 
 
 def log(*args):
@@ -381,10 +422,106 @@ KERNEL_CHECKS = {
 }
 
 
+def noisy_grid(rng, h, w, dev):
+    """The mode-0 (albedo) grid of a noisy h x w guide: nearly one vertex
+    per pixel, the most a full-width refinement meets."""
+    guide = np.clip(0.5 + 0.3 * rng.randn(h, w, 3), 0.0, 1.0)
+    p = bilateral.MODE_PARAMS[0]
+    return bilateral.build_grid(
+        torch.as_tensor(guide.astype(np.float32), device=dev) * 255.0,
+        p.sigma_spatial, p.sigma_luma, p.sigma_chroma)
+
+
+def blur_matrix(grid):
+    """The blur as one CSR matrix, 10 I + adjacency, built once from the
+    neighbour table: the library yardstick (torch.sparse.mm)."""
+    v = grid.nvert
+    nbr = grid.nbr.long()
+    ids = torch.arange(v, device=nbr.device)
+    hit = nbr >= 0
+    rows = torch.cat([ids, ids[:, None].expand(v, bilateral.N_DIRS)[hit]])
+    cols = torch.cat([ids, nbr[hit]])
+    vals = torch.cat([torch.full((v,), 2.0 * bilateral.DIM, device=ids.device),
+                      torch.ones(int(hit.sum()), device=ids.device)])
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, (v, v))
+    return coo.coalesce().to_sparse_csr()
+
+
+def check_bilateral_blur(grid, c, rng):
+    """The blur kernel bit for bit against its plain version on one grid,
+    and torch.sparse.mm of the same function beside it.  Returns the
+    three device times per call and their CUDA-event times per call."""
+    v = grid.nvert
+    y = torch.as_tensor(rng.rand(v, c).astype(np.float32),
+                        device=grid.nbr.device)
+    got = bilateral.bilateral_blur(grid, y)
+    want = bilateral.bilateral_blur_plain(grid, y)
+    mat = blur_matrix(grid)
+    lib = torch.sparse.mm(mat, y)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"bilateral_blur V={v} C={c}: not bit-equal, "
+                             f"max abs err {float((got - want).abs().max())}")
+    check_close("bilateral_blur torch.sparse.mm", lib, want, 1e-5, 0.0)
+    fns = (lambda: bilateral.bilateral_blur(grid, y),
+           lambda: bilateral.bilateral_blur_plain(grid, y),
+           lambda: torch.sparse.mm(mat, y))
+    return [device_ms(fn) for fn in fns], [median_ms(fn) for fn in fns]
+
+
+def device_ms(fn, n=50):
+    """Device time of one call of fn: the union of its kernels' intervals
+    in a torch.profiler trace of n calls, over n.  For a kernel of a few
+    microseconds, CUDA events around one call time the host's launch
+    path instead (the device idles between the two events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return device_busy_ms(prof) / n
+
+
+def phase_blur(seed, dev, bw, f32_peak):
+    """bilateral_blur at its main-path shapes (C=1 for bistochastization,
+    rough and depth, C=3 for albedo) and on a ragged 10x13 grid.  Returns
+    its JSON record, taken at C=1 (55 of a level's 68 launches), with
+    device times: the kernel, the plain version and torch.sparse.mm each
+    take a few microseconds of device time a call, far below the host's
+    launch path that CUDA events around one call would time."""
+    rng = np.random.RandomState(seed + 5)
+    full, ragged = noisy_grid(rng, *IM_HW, dev), noisy_grid(rng, 10, 13, dev)
+    record = None
+    for label, grid, c in (("main", full, 1), ("main", full, 3),
+                           ("ragged", ragged, 3), ("ragged", ragged, 1)):
+        (ms, plain_ms, library_ms), events = check_bilateral_blur(grid, c,
+                                                                  rng)
+        v = grid.nvert
+        n_bytes = 4 * 2 * v * c + 4 * bilateral.N_DIRS * v
+        flops = (1 + bilateral.N_DIRS) * v * c
+        bound_ms, bound_by = bound(n_bytes, flops, bw, f32_peak)
+        log(f"[kernels] bilateral_blur {label} V={v} C={c}: bit-equal to "
+            f"plain; device time per call: kernel {ms:.5f} ms, plain "
+            f"{plain_ms:.5f} ms, torch.sparse.mm {library_ms:.5f} ms; "
+            "CUDA events per call: "
+            + ", ".join(f"{t:.4f}" for t in events)
+            + f" ms; bound {bound_ms:.5f} ms ({bound_by}: "
+            f"{n_bytes / 1e6:.2f} MB, {flops / 1e6:.2f} MFLOP)")
+        if label == "main" and c == 1:
+            record = record_of("bilateral_blur", {"out": 0.0}, ms, plain_ms,
+                               bound_ms, bound_by)
+            record["library_ms"] = library_ms
+    return record
+
+
 def phase_kernels(seed, dev):
     """Every kernel vs its plain version (a backward also vs
     torch.autograd of the plain forward) at its main-path shape, a ragged
-    10x13 and K=4.  Returns {name: JSON record at the main-path shape}."""
+    10x13 and K=4; the bilateral blur on grids.  Returns {name: JSON
+    record at the main-path shape}."""
     rng = np.random.RandomState(seed)
     bw, f32_peak = card_peaks(torch.cuda.get_device_name(0))
     records = {}
@@ -403,6 +540,7 @@ def phase_kernels(seed, dev):
                                           bound_by)
             del args
         torch.cuda.empty_cache()
+    records["bilateral_blur"] = phase_blur(seed, dev, bw, f32_peak)
     return records
 
 
@@ -425,6 +563,12 @@ def check_shapes(out):
     h, w = IM_HW
     shapes = {"albedo": (1, h, w, 3), "normal": (1, h, w, 3),
               "rough": (1, h, w, 1), "depth": (1, h, w, 1)}
+    assert len(out["refined"]) == 2
+    for refined in out["refined"]:
+        assert sorted(refined) == sorted(BS_MODES), sorted(refined)
+        for k, v in refined.items():
+            assert tuple(v.shape) == shapes[k], (k, v.shape)
+            assert torch.isfinite(v).all(), k
     r, c = ENV_RC
     light_shapes = {"sg_flat": (1, r, c, 7 * SG_NUM),
                     "env_img": (1, r, c, 128, 3),
@@ -472,13 +616,34 @@ def check_lighting(stacks, im, im_small, out, worst):
             worst[key] = max(worst.get(key, 0.0), rel)
 
 
+def check_refinement(im, bs_nets, out, worst, nverts):
+    """Each level's refinement again with the plain blur, on the kernel
+    route's predictions; records each mode's vertex count."""
+    dev = out["preds"][0]["albedo"].device
+    im = torch.as_tensor(im, device=dev)
+    for lvl, (preds, refined) in enumerate(zip(out["preds"],
+                                               out["refined"])):
+        with torch.inference_mode():
+            ref = refine_bs(im, preds, bs_nets[lvl], use_kernels=False)
+            guide = normalized_guide(preds["albedo"])[0] * 255.0
+            for k, (_, mode) in BS_MODES.items():
+                p = bilateral.MODE_PARAMS[mode]
+                nverts.setdefault((lvl, k), []).append(bilateral.build_grid(
+                    guide, p.sigma_spatial, p.sigma_luma,
+                    p.sigma_chroma).nvert)
+        for k, v in ref.items():
+            err = check_close(f"refined{lvl}.{k}", refined[k], v, *REFINE_TOL)
+            key = f"refined{lvl}.{k}"
+            worst[key] = max(worst.get(key, 0.0), err)
+
+
 def reset_launches():
-    for name in KERNELS:
-        getattr(sg_render, name).launches = 0
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
 
 
 def read_launches():
-    return {name: getattr(sg_render, name).launches for name in KERNELS}
+    return {name: wrapper.launches for name, wrapper in WRAPPERS.items()}
 
 
 def phase_serving(seed):
@@ -490,10 +655,14 @@ def phase_serving(seed):
                          env_rows=ENV_RC[0], env_cols=ENV_RC[1],
                          generator=gen))
               for lvl in range(2)]
-    fast = InverseRenderer(stacks, is_light=True, use_kernels=True)
-    plain = InverseRenderer(stacks, is_light=True, use_kernels=False)
-    log(f"[serving] two cascades, seeded random weights, on "
-        f"{fast.device}: {time.perf_counter() - t0:.1f} s (set-up)")
+    bs_nets = [BilateralNets(gen) for _ in range(2)]
+    fast = InverseRenderer(stacks, is_light=True, is_bs=True,
+                           bs_nets=bs_nets, use_kernels=True)
+    plain = InverseRenderer(stacks, is_light=True, is_bs=True,
+                            bs_nets=bs_nets, use_kernels=False)
+    log(f"[serving] two cascades and their refinement, seeded random "
+        f"weights, on {fast.device}: {time.perf_counter() - t0:.1f} s "
+        "(set-up)")
     rng = np.random.RandomState(seed + 1)
     requests = [(rng.rand(1, *IM_HW, 3).astype(np.float32) ** 2.2,
                  rng.rand(1, *ENV_RC, 3).astype(np.float32) ** 2.2)
@@ -506,19 +675,24 @@ def phase_serving(seed):
 
     # the main path: the kernel route, counted and timed; the checks run
     # between requests, outside the timed region, and launch no kernel
-    worst, times, preds0 = {}, [], []
+    worst, times, preds0, nverts = {}, [], [], {}
     reset_launches()
     for im, im_small in requests:
         out, ms = timed_request(fast, im, im_small)
         times.append(ms)
         check_shapes(out)
         check_lighting(stacks, im, im_small, out, worst)
+        check_refinement(im, bs_nets, out, worst, nverts)
         preds0.append(out["preds"][0])
     launches = read_launches()
-    if launches != {**dict.fromkeys(KERNELS, 0),
-                    "render_sg_env": 2 * N_REQUESTS}:
+    want = {**dict.fromkeys(KERNELS, 0), "render_sg_env": 2 * N_REQUESTS,
+            "bilateral_blur": 2 * BLURS_FWD * N_REQUESTS}
+    if launches != want:
         raise AssertionError(f"launches {launches} for {N_REQUESTS} requests, "
-                             "expected 2 of render_sg_env each and no other")
+                             f"expected {want}")
+    log("[serving] grid vertices (min / median / max over the requests): "
+        + ", ".join(f"level {lvl} {k} {min(v)} / {statistics.median(v)} / "
+                    f"{max(v)}" for (lvl, k), v in nverts.items()))
 
     plain_times = []
     for (im, im_small), p0 in zip(requests, preds0):
@@ -528,13 +702,13 @@ def phase_serving(seed):
         for k, v in p0.items():
             if not torch.equal(v, ref["preds"][0][k]):
                 raise AssertionError(f"cascade-0 {k} differs between routes")
-    log("[serving] lighting, kernel route vs plain route on the same "
-        "inputs, max err: "
+    log("[serving] lighting and refinement, kernel route vs plain route "
+        "on the same inputs, max err: "
         + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
     med, p90 = percentiles(times)
     pmed, pp90 = percentiles(plain_times)
     log(f"[serving] {N_REQUESTS} requests, {launches['render_sg_env']} "
-        "render_sg_env "
+        f"render_sg_env and {launches['bilateral_blur']} bilateral_blur "
         f"launches; ms/request kernel route median {med:.3f} p90 {p90:.3f}, "
         f"plain route median {pmed:.3f} p90 {pp90:.3f}; peak device memory "
         f"{peak_mib:.0f} MiB")
@@ -543,10 +717,13 @@ def phase_serving(seed):
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        timed_request(fast, *requests[0])
-    log("[serving] torch.profiler, one request on the kernel route:")
+        _, ms = timed_request(fast, *requests[0])
+    busy_ms = device_busy_ms(prof)
+    log(f"[serving] torch.profiler, one request on the kernel route: "
+        f"{ms:.3f} ms on the host clock, device busy {busy_ms:.3f} ms "
+        f"(idle share {1.0 - busy_ms / ms:.3f}):")
     log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=20))
-    return {"render_sg_env": launches["render_sg_env"]}
+    return {k: launches[k] for k in ("render_sg_env", "bilateral_blur")}
 
 
 def device_busy_ms(prof):
@@ -650,7 +827,7 @@ def phase_training(seed, dev):
             raise AssertionError(f"{route}: total did not fall: {totals}")
         results[route] = launches
     want = {"kernels": {**dict.fromkeys(KERNELS, N_TRAIN_STEPS),
-                        "render_sg_env": 0},
+                        "render_sg_env": 0, "bilateral_blur": 0},
             "plain": dict.fromkeys(KERNELS, 0)}
     if results != want:
         raise AssertionError(f"launches {results}, expected {want}")
@@ -667,7 +844,99 @@ def phase_training(seed, dev):
     log(prof.key_averages().table(sort_by="self_cuda_time_total",
                                   row_limit=25))
     return {k: v for k, v in results["kernels"].items()
-            if k != "render_sg_env"}
+            if k not in ("render_sg_env", "bilateral_blur")}
+
+
+def check_first_bs_step(steps, batch):
+    """Both routes' bilateral losses and confidence-net gradients on one
+    batch, before any update.  Returns the kernel route's vertex counts."""
+    out = {}
+    for route, step in steps.items():
+        total, losses, stats = step.loss(batch)
+        total.backward()
+        out[route] = (losses, stats, {n: p.grad.clone() for n, p in
+                                      step.bs_nets.named_parameters()})
+        step.optimizer.zero_grad(set_to_none=True)
+    (lk, sk, gk), (lp, sp, gp) = out["kernels"], out["plain"]
+    nverts = {k: v["nvert"].tolist() for k, v in sk.items()}
+    if nverts != {k: v["nvert"].tolist() for k, v in sp.items()}:
+        raise AssertionError(f"grids differ between routes: {sk} vs {sp}")
+    dist = {k: abs(lk[k].item() / lp[k].item() - 1.0) for k in lp}
+    grads = {n: rel_l2(gk[n], gp[n]) for n in gp}
+    worst = max(grads, key=grads.get)
+    log("[bilateral training] step 1, kernel route vs plain route: "
+        + ", ".join(f"{k} {v.item():.6g}" for k, v in lk.items())
+        + "; relative differences "
+        + ", ".join(f"{k} {v:.3e}" for k, v in dist.items())
+        + f"; worst gradient relative L2 {grads[worst]:.3e} ({worst})")
+    if not max(dist.values()) <= BS_STEP1_TOL["losses"]:
+        raise AssertionError(f"step 1 losses: {dist}")
+    if not grads[worst] <= BS_STEP1_TOL["grads"]:
+        raise AssertionError(f"step 1 gradient {worst}: {grads[worst]}")
+    return nverts
+
+
+def phase_bilateral_training(seed, dev):
+    """The bilateral train step at full width, both routes from the same
+    weights.  Returns {kernel: launches} of the kernel route's run."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(seed + 3)
+    brdf, bs_nets = BRDFNets(0, generator=gen), BilateralNets(gen)
+    steps = {route: make_bilateral_train_step(
+                 copy.deepcopy(brdf), copy.deepcopy(bs_nets),
+                 use_kernels=flag, device=dev, lr=TRAIN_LR)
+             for route, flag in (("kernels", True), ("plain", False))}
+    batch = synthetic_batch(batch=BS_TRAIN_B, im_hw=IM_HW, env_rc=ENV_RC,
+                            sg_num=SG_NUM, seed=seed + 3, device=dev)
+    log(f"[bilateral training] B={BS_TRAIN_B}, image {IM_HW[0]}x{IM_HW[1]}, "
+        f"frozen cascade-0 BRDF nets, lr {TRAIN_LR}: "
+        f"{time.perf_counter() - t0:.1f} s (set-up)")
+    nverts = check_first_bs_step(steps, batch)
+    log(f"[bilateral training] grid vertices per image: {nverts}")
+
+    per_step = BS_TRAIN_B * (BLURS_FWD + BLURS_GRAD)
+    results = {}
+    for route, step in steps.items():
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        totals, times = [], []
+        for _ in range(N_TRAIN_STEPS):
+            metrics, ms = timed_step(step, batch)
+            times.append(ms)
+            totals.append(float(metrics["total"]))
+            bad = [k for k, v in metrics.items()
+                   if not torch.isfinite(v.float())]
+            if bad:
+                raise AssertionError(f"{route}: non-finite {bad}")
+        launches = read_launches()
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        med, p90 = percentiles(times)
+        log(f"[bilateral training] {route} route, {N_TRAIN_STEPS} steps: "
+            f"ms/step median {med:.3f} p90 {p90:.3f}; peak device memory "
+            f"{peak_mib:.0f} MiB; total {totals[0]:.6g} -> {totals[-1]:.6g} "
+            f"(min {min(totals):.6g}); bilateral_blur launches "
+            f"{launches['bilateral_blur']} ({per_step} a step expected)")
+        if not min(totals[1:]) < totals[0]:
+            raise AssertionError(f"{route}: total did not fall: {totals}")
+        results[route] = launches
+    want = {"kernels": {**dict.fromkeys(KERNELS, 0),
+                        "bilateral_blur": per_step * N_TRAIN_STEPS},
+            "plain": dict.fromkeys(KERNELS, 0)}
+    if results != want:
+        raise AssertionError(f"launches {results}, expected {want}")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, ms = timed_step(steps["kernels"], batch)
+    busy_ms = device_busy_ms(prof)
+    log(f"[bilateral training] torch.profiler, one step on the kernel "
+        f"route: {ms:.3f} ms on the host clock, device busy {busy_ms:.3f} ms "
+        f"(idle share {1.0 - busy_ms / ms:.3f}):")
+    log(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                  row_limit=25))
+    return {"bilateral_blur": results["kernels"]["bilateral_blur"]}
 
 
 def main(argv=None):
@@ -684,6 +953,10 @@ def main(argv=None):
     records = phase_kernels(args.seed, dev)
     launches = phase_serving(args.seed)
     launches.update(phase_training(args.seed, dev))
+    # bilateral_blur's count: the serving run's and the bilateral training
+    # run's together
+    launches["bilateral_blur"] += phase_bilateral_training(
+        args.seed, dev)["bilateral_blur"]
     for name, record in records.items():
         record["launches"] = launches[name]
     log(smi)

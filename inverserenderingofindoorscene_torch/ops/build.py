@@ -5,7 +5,8 @@ into a shared library with a plain C interface, loaded with ``ctypes``.
 Libraries go to ``build/torch_kernels/`` at the root of the checkout,
 named by a hash of the source, the shared ``csrc/*.cuh`` headers and the
 flags, so a checkout builds its own kernels on first use and a changed
-source or header is rebuilt.  Nothing here runs at import time.
+source or header is rebuilt.  Nothing here runs at import time.  The
+launch helpers at the end are shared by every kernel wrapper.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("sg_render_env", "sg_render", "sg_envmap")
+SOURCES = ("sg_render_env", "sg_render", "sg_envmap", "bilateral_blur")
 
 
 def _nvcc() -> str:
@@ -88,3 +89,27 @@ def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load the library of ``csrc/<name>.cu``."""
     build_all((name,))
     return ctypes.CDLL(str(library_path(name)))
+
+
+def on_card(fn: str, x) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raise for the rest.
+    A wrapper launches its kernel on the first and runs its plain version
+    on the second."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type == "cuda":
+        return True
+    raise ValueError(f"{fn}: unsupported device {x.device}")
+
+
+def raise_on(fn: str, err: int) -> None:
+    """Raise for the nonzero ``cudaGetLastError()`` a launch returned."""
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: cudaError {err}")
+
+
+def stream(device) -> int:
+    """PyTorch's current CUDA stream on ``device``, as a pointer."""
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

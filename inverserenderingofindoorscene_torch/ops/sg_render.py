@@ -94,15 +94,6 @@ def _view(height, width, fov_deg, device) -> torch.Tensor:
     return torch.as_tensor(v.astype(np.float32), device=device)
 
 
-def _on_card(fn: str, x: torch.Tensor) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raise for the rest."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type == "cuda":
-        return True
-    raise ValueError(f"{fn}: unsupported device {x.device}")
-
-
 def _check(fn: str, device, expect: dict) -> None:
     """Raise unless every {name: (tensor, shape)} is a contiguous float32
     tensor of that shape on ``device``."""
@@ -129,15 +120,6 @@ def _shading_inputs(fn, albedo, normal, rough, axis, lamb, weight):
         "weight": (weight, (b, h, w, k, 3)),
     })
     return b, h, w, k
-
-
-def _raise_on(fn: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{fn} launch failed: cudaError {err}")
-
-
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 # ---------------------------------------------------------------------------
@@ -171,7 +153,7 @@ def render_sg_env(albedo, normal, rough, axis, lamb, weight, fov_deg=57.0,
     be contiguous float32 on one device.  ``render_sg_env.launches``
     counts kernel launches.
     """
-    if not _on_card("render_sg_env", albedo):
+    if not build.on_card("render_sg_env", albedo):
         return render_sg_env_plain(albedo, normal, rough, axis, lamb, weight,
                                    fov_deg, f0, env_height, env_width)
     b, h, w, k = _shading_inputs("render_sg_env", albedo, normal, rough,
@@ -192,12 +174,12 @@ def render_sg_env(albedo, normal, rough, axis, lamb, weight, fov_deg=57.0,
         return diffuse, specular, env
     view = _view(h, w, float(fov_deg), dev)
     dirs = _dir_consts(env_height, env_width, dev)
-    _raise_on("sg_render_env", lib.sg_render_env_f32(
+    build.raise_on("sg_render_env", lib.sg_render_env_f32(
         albedo.data_ptr(), normal.data_ptr(), rough.data_ptr(),
         axis.data_ptr(), lamb.data_ptr(), weight.data_ptr(),
         view.data_ptr(), dirs.data_ptr(), diffuse.data_ptr(),
         specular.data_ptr(), env.data_ptr(), n, h * w, k, d, float(f0),
-        _stream(dev),
+        build.stream(dev),
     ))
     render_sg_env.launches += 1
     return diffuse, specular, env
@@ -250,7 +232,7 @@ def _envmap_inputs(fn, axis, lamb, weight):
 def sg_envmap_fwd(axis, lamb, weight, env_height=8, env_width=16):
     """Launch the forward kernel (CUDA) or run :func:`sg_envmap_plain`
     (CPU).  Not differentiable; :func:`sg_envmap` is."""
-    if not _on_card("sg_envmap_fwd", axis):
+    if not build.on_card("sg_envmap_fwd", axis):
         return sg_envmap_plain(axis, lamb, weight, env_height, env_width)
     lib, n, k = _envmap_inputs("sg_envmap_fwd", axis, lamb, weight)
     d = env_height * env_width
@@ -259,10 +241,10 @@ def sg_envmap_fwd(axis, lamb, weight, env_height=8, env_width=16):
                       device=dev)
     if n == 0:
         return env
-    _raise_on("sg_envmap_fwd", lib.sg_envmap_fwd_f32(
+    build.raise_on("sg_envmap_fwd", lib.sg_envmap_fwd_f32(
         axis.data_ptr(), lamb.data_ptr(), weight.data_ptr(),
         _dir_consts(env_height, env_width, dev).data_ptr(), env.data_ptr(),
-        n, k, d, _stream(dev),
+        n, k, d, build.stream(dev),
     ))
     sg_envmap_fwd.launches += 1
     return env
@@ -272,7 +254,7 @@ def sg_envmap_bwd(axis, lamb, weight, g_env, env_height=8, env_width=16):
     """Launch the backward kernel (CUDA) or run
     :func:`sg_envmap_bwd_plain` (CPU).  Returns (d_axis, d_lamb,
     d_weight)."""
-    if not _on_card("sg_envmap_bwd", axis):
+    if not build.on_card("sg_envmap_bwd", axis):
         return sg_envmap_bwd_plain(axis, lamb, weight, g_env, env_height,
                                    env_width)
     lib, n, k = _envmap_inputs("sg_envmap_bwd", axis, lamb, weight)
@@ -286,11 +268,11 @@ def sg_envmap_bwd(axis, lamb, weight, g_env, env_height=8, env_width=16):
     if n == 0:
         return d_axis, d_lamb, d_weight
     dev = axis.device
-    _raise_on("sg_envmap_bwd", lib.sg_envmap_bwd_f32(
+    build.raise_on("sg_envmap_bwd", lib.sg_envmap_bwd_f32(
         axis.data_ptr(), lamb.data_ptr(), weight.data_ptr(),
         _dir_consts(env_height, env_width, dev).data_ptr(), g_env.data_ptr(),
         d_axis.data_ptr(), d_lamb.data_ptr(), d_weight.data_ptr(),
-        n, k, d, _stream(dev),
+        n, k, d, build.stream(dev),
     ))
     sg_envmap_bwd.launches += 1
     return d_axis, d_lamb, d_weight
@@ -562,7 +544,7 @@ def render_sg_fwd(albedo, normal, rough, axis, lamb, weight, fov_deg=57.0,
                   f0=0.05, env_height=8, env_width=16):
     """Launch the forward kernel (CUDA) or run :func:`render_sg_plain`
     (CPU).  Not differentiable; :func:`render_sg` is."""
-    if not _on_card("render_sg_fwd", albedo):
+    if not build.on_card("render_sg_fwd", albedo):
         return render_sg_plain(albedo, normal, rough, axis, lamb, weight,
                                fov_deg, f0, env_height, env_width)
     lib, (b, h, w, k), (view, dirs) = _render_launch_inputs(
@@ -573,12 +555,12 @@ def render_sg_fwd(albedo, normal, rough, axis, lamb, weight, fov_deg=57.0,
     n = b * h * w
     if n == 0:
         return diffuse, specular
-    _raise_on("render_sg_fwd", lib.render_sg_fwd_f32(
+    build.raise_on("render_sg_fwd", lib.render_sg_fwd_f32(
         albedo.data_ptr(), normal.data_ptr(), rough.data_ptr(),
         axis.data_ptr(), lamb.data_ptr(), weight.data_ptr(),
         view.data_ptr(), dirs.data_ptr(), diffuse.data_ptr(),
         specular.data_ptr(), n, h * w, k, env_height * env_width, float(f0),
-        _stream(albedo.device),
+        build.stream(albedo.device),
     ))
     render_sg_fwd.launches += 1
     return diffuse, specular
@@ -589,7 +571,7 @@ def render_sg_bwd(albedo, normal, rough, axis, lamb, weight, grad_diffuse,
                   env_width=16):
     """Launch the backward kernel (CUDA) or run
     :func:`render_sg_bwd_plain` (CPU).  Returns the six input gradients."""
-    if not _on_card("render_sg_bwd", albedo):
+    if not build.on_card("render_sg_bwd", albedo):
         return render_sg_bwd_plain(albedo, normal, rough, axis, lamb, weight,
                                    grad_diffuse, grad_specular, fov_deg, f0,
                                    env_height, env_width)
@@ -608,12 +590,12 @@ def render_sg_bwd(albedo, normal, rough, axis, lamb, weight, grad_diffuse,
     n = b * h * w
     if n == 0:
         return tuple(grads)
-    _raise_on("render_sg_bwd", lib.render_sg_bwd_f32(
+    build.raise_on("render_sg_bwd", lib.render_sg_bwd_f32(
         albedo.data_ptr(), normal.data_ptr(), rough.data_ptr(),
         axis.data_ptr(), lamb.data_ptr(), weight.data_ptr(),
         view.data_ptr(), dirs.data_ptr(), grad_diffuse.data_ptr(),
         grad_specular.data_ptr(), *(g.data_ptr() for g in grads),
-        n, h * w, k, d, float(f0), _stream(albedo.device),
+        n, h * w, k, d, float(f0), build.stream(albedo.device),
     ))
     render_sg_bwd.launches += 1
     return tuple(grads)

@@ -2,14 +2,17 @@
 
 The counterpart of the JAX package's ``pipeline/inference.py``: stage
 functions (:func:`predict_brdf`, :func:`predict_light_core`,
-:func:`predict_light`) plus :class:`InverseRenderer`, which runs image ->
-albedo/normal/rough/depth/lighting through both cascades in one call.
-Public functions take and return NHWC tensors like the JAX package; the
-networks inside run in NCHW.
+:func:`predict_light`, :func:`bs_prep`, :func:`refine_bs`) plus
+:class:`InverseRenderer`, which runs image ->
+albedo/normal/rough/depth/lighting through both cascades, and optionally
+the bilateral refinement of every cascade's maps, in one call.  Public
+functions take and return NHWC tensors like the JAX package; the networks
+inside run in NCHW.
 
-Not ported yet: the bilateral refinement (``is_bs``), the fused
-single-program mode and its ``serialize`` export, and ``load_real_image``
-/ ``render_file`` (which need OpenCV).
+Not ported yet: the fused single-program mode and its ``serialize``
+export, and ``load_real_image`` / ``render_file`` (which need OpenCV).
+The JAX package's vertex-capacity option ``v_max`` has no counterpart:
+the port's grids have exactly as many vertices as occupied cells.
 """
 
 from __future__ import annotations
@@ -30,6 +33,11 @@ from inverserenderingofindoorscene_torch.core.render_layer import (
 from inverserenderingofindoorscene_torch.core.scale import ls_regress_diff_spec
 from inverserenderingofindoorscene_torch.device import resolve_device
 from inverserenderingofindoorscene_torch.ops.sg_render import render_sg_env
+from inverserenderingofindoorscene_torch.pipeline.bilateral import (
+    BS_MODES,
+    bs_prep,
+    refine,
+)
 from inverserenderingofindoorscene_torch.pipeline.light import (
     light_input_from_preds,
     mean_normalize,
@@ -164,6 +172,16 @@ def _cascade1_extra(im, preds, diffuse, specular):
     ]
 
 
+def refine_bs(im, preds, bs_nets=None, use_kernels=True):
+    """Bilateral refinement of albedo / rough / depth (testReal.py:532-540)
+    with the confidences of ``bs_nets`` (a ``BilateralNets``; None means
+    unit confidence).  ``use_kernels`` blurs with the CUDA kernel
+    ``ops.bilateral.bilateral_blur`` (on CUDA tensors) or its plain
+    version.  Returns the refined NHWC maps keyed albedo / rough / depth."""
+    refined, _, _ = refine(bs_nets, im, preds, use_kernels)
+    return {k: refined[k] for k in BS_MODES}
+
+
 class InverseRenderer:
     """Single-image inverse rendering as one call (staged mode).
 
@@ -171,17 +189,22 @@ class InverseRenderer:
     modules are moved to ``device`` in place.  ``device=None`` means
     ``cuda`` and raises without CUDA; pass ``device="cpu"`` to run on the
     CPU.  ``use_kernels`` routes the lighting decode + shading through the
-    CUDA kernel (``ops.sg_render.render_sg_env``).  ``is_bs`` and
-    ``fused`` are not ported yet and raise ``NotImplementedError``.
+    CUDA kernel ``ops.sg_render.render_sg_env`` and the refinement's blur
+    through ``ops.bilateral.bilateral_blur``.
+
+    ``is_bs`` refines every level's albedo / rough / depth with the
+    bilateral solver (:func:`refine_bs`).  ``bs_nets``: the confidence
+    nets, one ``BilateralNets`` per level (a list; an entry may be None
+    for unit confidence) or one applied to every level, or None for unit
+    confidence everywhere.  ``fused`` is not ported and raises
+    ``NotImplementedError``.
     """
 
-    def __init__(self, stacks, *, is_light=True, is_bs=False,
+    def __init__(self, stacks, *, is_light=True, is_bs=False, bs_nets=None,
                  use_kernels=True, fused=False, device=None):
         self.level = len(stacks)
         if self.level not in (1, 2):
             raise ValueError(f"level must be 1 or 2, got {self.level}")
-        if is_bs:
-            raise NotImplementedError("bilateral refinement is not ported")
         if fused:
             raise NotImplementedError("the fused single-program mode is not "
                                       "ported; use the staged mode")
@@ -194,6 +217,16 @@ class InverseRenderer:
             (b.to(self.device).eval(), l.to(self.device).eval())
             for b, l in stacks
         ]
+        self.is_bs = is_bs
+        if isinstance(bs_nets, (list, tuple)):
+            if len(bs_nets) != self.level:
+                raise ValueError(f"{len(bs_nets)} bs_nets for "
+                                 f"{self.level} levels")
+            bs_list = list(bs_nets)
+        else:
+            bs_list = [bs_nets] * self.level
+        self._bs_nets = [None if n is None else n.to(self.device).eval()
+                         for n in bs_list]
 
     def _light(self, level, im, preds, im_small, fov, env_pre=None):
         core = predict_light_core(
@@ -209,7 +242,8 @@ class InverseRenderer:
 
         Returns {"preds": [per-cascade NHWC pred dicts], "lights":
         [per-level light dicts], "light": the final level's light dict or
-        None, "refined": None (bilateral refinement is not ported)}."""
+        None, "refined": [per-level refined dicts] with ``is_bs``, else
+        None}."""
         im = torch.as_tensor(im, dtype=torch.float32, device=self.device)
         im_small = torch.as_tensor(im_small, dtype=torch.float32,
                                    device=self.device)
@@ -233,11 +267,15 @@ class InverseRenderer:
                 if self.is_light:
                     lights.append(self._light(1, im, preds, im_small, fov,
                                               lights[0]["sg_flat"]))
+            refined = [
+                refine_bs(im, p, nets, self.use_kernels)
+                for p, nets in zip(all_preds, self._bs_nets)
+            ] if self.is_bs else None
         return {
             "preds": all_preds,
             "lights": lights,
             "light": lights[-1] if lights else None,
-            "refined": None,
+            "refined": refined,
         }
 
 
@@ -246,4 +284,6 @@ __all__ = [
     "predict_brdf",
     "predict_light_core",
     "predict_light",
+    "bs_prep",
+    "refine_bs",
 ]

@@ -5,7 +5,8 @@ trains each stage with Adam(lr=1e-4, betas=(0.5, 0.999)) and halves the
 rate every 10 epochs; :func:`reference_adam` is that optimizer with the
 halving as a per-step schedule.  A step here owns its modules and its
 optimizer and updates them in place (the JAX step is a pure function of
-a ``TrainState``).  Only the lighting stage at cascade 0 is ported yet.
+a ``TrainState``).  Ported: the lighting stage at cascade 0 and the
+bilateral stage.
 """
 
 from __future__ import annotations
@@ -15,6 +16,10 @@ from typing import Optional
 import torch
 
 from inverserenderingofindoorscene_torch.device import resolve_device
+from inverserenderingofindoorscene_torch.pipeline.bilateral import (
+    bilateral_step,
+    bilateral_total_error,
+)
 from inverserenderingofindoorscene_torch.pipeline.light import light_step
 
 
@@ -79,5 +84,54 @@ class LightTrainStep:
         return metrics
 
 
-# the JAX package's name: a call builds the step
+class BilateralTrainStep:
+    """The bilateral-training step of trainBRDFBilateral: frozen BRDF
+    nets, Adam on the three confidence nets through the solver's gradient
+    CG solve, loss = 4 albedo_w albedo_bs + rough_w rough_bs + depth_w
+    depth_bs.  Both modules move to ``device`` (``None`` means CUDA) in
+    place; ``use_kernels`` blurs with the CUDA kernel or its plain
+    version.
+
+    Calling it with a batch takes one step and returns the metrics: the
+    ``_raw``/``_bs`` losses, ``normal_raw``, ``total``, and the true
+    vertex counts, ``nvert_<mode>`` (the largest of the batch) and their
+    maximum ``nvert_max``.  :meth:`loss` computes (total, losses, stats)
+    without the update."""
+
+    def __init__(self, brdf_nets, bs_nets, albedo_w: float = 1.5,
+                 rough_w: float = 0.5, depth_w: float = 0.5,
+                 use_kernels: bool = True, device=None, lr: float = 1e-4,
+                 epoch_decay_steps: Optional[int] = None):
+        self.device = resolve_device(device)
+        self.brdf_nets = brdf_nets.to(self.device).requires_grad_(False)
+        self.bs_nets = bs_nets.to(self.device)
+        self.weights = (albedo_w, rough_w, depth_w)
+        self.use_kernels = use_kernels
+        self.optimizer, self.scheduler = reference_adam(
+            self.bs_nets.parameters(), lr, epoch_decay_steps)
+
+    def loss(self, batch: dict):
+        batch = {k: v.to(self.device) for k, v in batch.items()}
+        losses, aux = bilateral_step(self.brdf_nets, self.bs_nets, batch,
+                                     use_kernels=self.use_kernels)
+        total = bilateral_total_error(losses, *self.weights)
+        return total, losses, aux["grid_stats"]
+
+    def __call__(self, batch: dict) -> dict:
+        self.optimizer.zero_grad(set_to_none=True)
+        total, losses, stats = self.loss(batch)
+        total.backward()
+        self.optimizer.step()
+        if self.scheduler is not None:
+            self.scheduler.step()
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["total"] = total.detach()
+        for mode, st in stats.items():
+            metrics[f"nvert_{mode}"] = st["nvert"].max()
+        metrics["nvert_max"] = max(metrics[f"nvert_{m}"] for m in stats)
+        return metrics
+
+
+# the JAX package's names: a call builds the step
 make_light_train_step = LightTrainStep
+make_bilateral_train_step = BilateralTrainStep

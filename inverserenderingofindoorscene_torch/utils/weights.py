@@ -2,13 +2,15 @@
 
 The inverse of the JAX package's ``utils/torch_import.py``: flax param
 trees, given as nested dicts of numpy arrays (``jax.tree.map(np.asarray,
-params)``), become ``state_dict``s of :class:`BRDFNets` / :class:`LightNets`:
+params)``), become ``state_dict``s of :class:`BRDFNets` / :class:`LightNets` /
+:class:`BilateralNets`:
 
   * conv kernels HWIO -> OIHW (transpose (3, 2, 0, 1)), biases as they are;
   * GroupNorm ``scale`` -> ``weight``;
   * flax's ``Conv_i``/``GroupNorm_i`` -> the reference names
     (``conv{i}``/``gn{i}``, ``dconv{i}``/``dgn{i}``/``dconvFinal``,
-    ``preProcess.1/.2/.5/.6``).
+    ``preProcess.1/.2/.5/.6``, and the confidence nets' ``conv1/2``,
+    ``dconv1/2``, ``dconvFinal``).
 
 Every flax leaf maps to exactly one key, and an unknown layer raises, so
 the result loads with ``load_state_dict(strict=True)``.  An optax Adam
@@ -51,6 +53,14 @@ LIGHT_ENCODER_NAMES = {
     **{f"GroupNorm_{i + 2}": f"gn{i + 1}" for i in range(6)},
 }
 
+CONFIDENCE_NAMES = {
+    "Conv_0": "conv1", "GroupNorm_0": "gn1",
+    "Conv_1": "conv2", "GroupNorm_1": "gn2",
+    "Conv_2": "dconv1", "GroupNorm_2": "dgn1",
+    "Conv_3": "dconv2", "GroupNorm_3": "dgn2",
+    "Conv_4": "dconvFinal",
+}
+
 
 def module_state_dict(flax_tree: dict, names: dict, prefix: str = "") -> dict:
     """One flax module's ``{"params": {layer: {leaf: array}}}`` ->
@@ -86,6 +96,17 @@ def light_state_dict(params: dict) -> dict:
     sd = module_state_dict(params["encoder"], LIGHT_ENCODER_NAMES, "encoder.")
     for head in ("axis", "lamb", "weight"):
         sd.update(module_state_dict(params[head], DECODER_NAMES, f"{head}."))
+    return sd
+
+
+def bilateral_state_dict(params: dict) -> dict:
+    """JAX ``BilateralNets.init`` params ({"albedo", "rough", "depth"},
+    each a flax ``ConfidenceNet``) -> port ``BilateralNets`` state dict.
+    Gradient trees convert the same way."""
+    sd = {}
+    for mode in ("albedo", "rough", "depth"):
+        sd.update(module_state_dict(params[mode], CONFIDENCE_NAMES,
+                                    f"{mode}."))
     return sd
 
 

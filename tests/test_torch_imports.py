@@ -20,7 +20,8 @@ names = [m.name for m in
 for name in names:
     importlib.import_module(name)
 need = {"data.synthetic", "losses.masked", "train.steps", "pipeline.light",
-        "ops.sg_render"}
+        "ops.sg_render", "ops.bilateral", "pipeline.bilateral",
+        "models.bilateral_net"}
 assert {port.__name__ + "." + n for n in need} <= set(names)
 import chip_smoke
 bad = sorted(m for m in sys.modules
@@ -36,5 +37,5 @@ def test_port_and_chip_smoke_import_no_jax():
                          capture_output=True, text=True, timeout=120,
                          check=True).stdout.split()
     n_modules, loaded = int(out[0]), " ".join(out[1:])
-    assert n_modules >= 27, n_modules
+    assert n_modules >= 30, n_modules
     assert loaded == "[]", loaded

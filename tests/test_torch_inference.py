@@ -172,9 +172,12 @@ def test_staged_mode_contract(stacks, request_arrays):
     r = InverseRenderer(port_stacks, is_light=True, device="cpu")
     with pytest.raises(ValueError, match="strictly-B1"):
         r(np.concatenate([im, im]), np.concatenate([im_small, im_small]))
-    for kw in ({"is_bs": True}, {"fused": True}):
-        with pytest.raises(NotImplementedError):
-            InverseRenderer(port_stacks, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        InverseRenderer(port_stacks, device="cpu", fused=True)
+    # bilateral refinement: one BilateralNets (or None) per level
+    with pytest.raises(ValueError, match="bs_nets"):
+        InverseRenderer(port_stacks, device="cpu", is_bs=True,
+                        bs_nets=[None])
 
 
 def test_device_none_means_cuda(stacks):
