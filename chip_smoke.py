@@ -9,8 +9,11 @@ Phases, each fatal on failure:
      (``inverserenderingofindoorscene_torch/ops/csrc``), all at once;
   3. kernels: each kernel's wrapper against its plain PyTorch version on
      the card (a backward also against torch.autograd of the plain
-     forward), at its main-path shape, a ragged 10x13 and K=4, with times
-     and bounds; the bilateral blur bit for bit on the grid of a noisy
+     forward), at its main-path shape, a ragged 10x13 and K=4 (the render
+     backward also at K=24, above 48 KB of shared memory, and a K past the
+     card's limit must raise), with bounds and with times by device time
+     (the profiler's kernel intervals) and by CUDA events around a run of
+     launches; the bilateral blur bit for bit on the grid of a noisy
      240x320 guide at C=3 and C=1 and on a ragged 10x13 one, with the
      time of torch.sparse.mm beside it;
   4. serving: the two-cascade ``InverseRenderer`` (level 2, lighting on,
@@ -186,20 +189,26 @@ def kernel_inputs(rng, b, h, w, k, device):
             for x in (albedo, normal, rough, ax, lamb, wgt)]
 
 
-def median_ms(fn, n=50, warmup=5):
-    """Median of n launches, each timed with a pair of CUDA events."""
+def events_ms(fn, n=50, warmup=5):
+    """Time of one call of fn: a pair of CUDA events around a run of n
+    calls, over n.  Where the host issues a call more slowly than the
+    device runs it, this reads the host's launch path."""
     for _ in range(warmup):
         fn()
-    pairs = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(n):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        pairs.append((start, end))
+    end.record()
     torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+    return start.elapsed_time(end) / n
+
+
+def timings(fns):
+    """(device ms, events ms) per call of each function: the device time
+    goes into the record, both into the log."""
+    return [device_ms(fn) for fn in fns], [events_ms(fn) for fn in fns]
 
 
 def check_close(name, got, want, rtol, atol):
@@ -244,7 +253,8 @@ def phase_build():
         f"{len(logs)} compiled in {time.perf_counter() - t0:.1f} s (set-up)")
     for name, out in logs.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill")):
                 log(f"[build] {name}: {line.strip()}")
 
 
@@ -280,13 +290,15 @@ def bound(n_bytes, flops, bw, f32_peak):
                                        else "operations")
 
 
-def log_kernel(name, label, shape, errs, ms, plain_ms, bound_ms, bound_by,
+def log_kernel(name, label, shape, errs, dev, events, bound_ms, bound_by,
                n_bytes, flops):
     b, h, w, k = shape
     log(f"[kernels] {name} {label} B={b} {h}x{w} K={k}: max abs err "
         + ", ".join(f"{nm} {e:.3e}" for nm, e in errs.items())
-        + f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB, "
+        + f"; device time per call: kernel {dev[0]:.5f} ms, plain "
+        f"{dev[1]:.5f} ms; CUDA events over a run, per call: kernel "
+        f"{events[0]:.5f} ms, plain {events[1]:.5f} ms; bound "
+        f"{bound_ms:.5f} ms ({bound_by}: {n_bytes / 1e6:.1f} MB, "
         f"{flops / 1e6:.0f} MFLOP)")
 
 
@@ -318,12 +330,12 @@ def check_render_sg_env(args, shape):
                                  SPECULAR_REL_L1),
         "env": check_close("env", got[2], want[2], *ELEMENT_TOL["env"]),
     }
-    ms = median_ms(lambda: sg_render.render_sg_env(*args))
-    plain_ms = median_ms(lambda: sg_render.render_sg_env_plain(*args))
+    fns = (lambda: sg_render.render_sg_env(*args),
+           lambda: sg_render.render_sg_env_plain(*args))
     n, d = b * h * w, N_DIRS
     n_bytes = 4 * (n * (7 + 7 * k) + h * w * 3 + d * 4 + n * (6 + 3 * d))
     flops = n * (8 * k + 45) * d
-    return errs, ms, plain_ms, n_bytes, flops
+    return errs, fns, n_bytes, flops
 
 
 def check_render_sg_fwd(args, shape):
@@ -337,12 +349,12 @@ def check_render_sg_fwd(args, shape):
         "specular": check_rel_l1("specular", got[1], want[1],
                                  SPECULAR_REL_L1),
     }
-    ms = median_ms(lambda: sg_render.render_sg_fwd(*args))
-    plain_ms = median_ms(lambda: sg_render.render_sg_plain(*args))
+    fns = (lambda: sg_render.render_sg_fwd(*args),
+           lambda: sg_render.render_sg_plain(*args))
     n, d = b * h * w, N_DIRS
     n_bytes = 4 * (n * (7 + 7 * k) + h * w * 3 + d * 4 + n * 6)
     flops = n * (8 * k + 45) * d
-    return errs, ms, plain_ms, n_bytes, flops
+    return errs, fns, n_bytes, flops
 
 
 GRAD_NAMES = ("albedo", "normal", "rough", "axis", "lamb", "weight")
@@ -367,12 +379,12 @@ def check_render_sg_bwd(args, shape):
         "adjoint / vs autograd: ".format(*shape)
         + ", ".join(f"{nm} {rel_l2(g, e):.2e} / {rel_l2(g, a):.2e}"
                     for nm, g, e, a in zip(GRAD_NAMES, got, explicit, auto)))
-    ms = median_ms(lambda: sg_render.render_sg_bwd(*args, *cot))
-    plain_ms = median_ms(lambda: sg_render.render_sg_bwd_plain(*args, *cot))
+    fns = (lambda: sg_render.render_sg_bwd(*args, *cot),
+           lambda: sg_render.render_sg_bwd_plain(*args, *cot))
     n, d = b * h * w, N_DIRS
     n_bytes = 4 * (2 * n * (7 + 7 * k) + h * w * 3 + d * 4 + n * 6)
     flops = 3 * n * (8 * k + 45) * d
-    return errs, ms, plain_ms, n_bytes, flops
+    return errs, fns, n_bytes, flops
 
 
 def check_sg_envmap_fwd(args, shape):
@@ -382,12 +394,12 @@ def check_sg_envmap_fwd(args, shape):
     want = sg_render.sg_envmap_plain(*lobes)
     torch.cuda.synchronize()
     errs = {"env": check_close("env", got, want, *ELEMENT_TOL["env"])}
-    ms = median_ms(lambda: sg_render.sg_envmap_fwd(*lobes))
-    plain_ms = median_ms(lambda: sg_render.sg_envmap_plain(*lobes))
+    fns = (lambda: sg_render.sg_envmap_fwd(*lobes),
+           lambda: sg_render.sg_envmap_plain(*lobes))
     n, d = b * h * w, N_DIRS
     n_bytes = 4 * (n * 7 * k + d * 4 + n * 3 * d)
     flops = n * k * 8 * d
-    return errs, ms, plain_ms, n_bytes, flops
+    return errs, fns, n_bytes, flops
 
 
 def check_sg_envmap_bwd(args, shape):
@@ -404,12 +416,12 @@ def check_sg_envmap_bwd(args, shape):
     for nm, g, e, a in zip(GRAD_NAMES[3:], got, explicit, auto):
         errs[nm] = check_grad(f"d_{nm} vs plain adjoint", g, e)
         errs[f"{nm} (autograd)"] = check_grad(f"d_{nm} vs autograd", g, a)
-    ms = median_ms(lambda: sg_render.sg_envmap_bwd(*lobes, g_env))
-    plain_ms = median_ms(lambda: sg_render.sg_envmap_bwd_plain(*lobes, g_env))
+    fns = (lambda: sg_render.sg_envmap_bwd(*lobes, g_env),
+           lambda: sg_render.sg_envmap_bwd_plain(*lobes, g_env))
     n, d = b * h * w, N_DIRS
     n_bytes = 4 * (2 * n * 7 * k + d * 4 + n * 3 * d)
     flops = 3 * n * k * 8 * d
-    return errs, ms, plain_ms, n_bytes, flops
+    return errs, fns, n_bytes, flops
 
 
 # kernel name -> (check, the shape its record is taken at: the main path's)
@@ -466,23 +478,30 @@ def check_bilateral_blur(grid, c, rng):
     fns = (lambda: bilateral.bilateral_blur(grid, y),
            lambda: bilateral.bilateral_blur_plain(grid, y),
            lambda: torch.sparse.mm(mat, y))
-    return [device_ms(fn) for fn in fns], [median_ms(fn) for fn in fns]
+    return timings(fns)
 
 
-def device_ms(fn, n=50):
+def device_ms(fn, n=50, tries=3):
     """Device time of one call of fn: the union of its kernels' intervals
     in a torch.profiler trace of n calls, over n.  For a kernel of a few
     microseconds, CUDA events around one call time the host's launch
-    path instead (the device idles between the two events)."""
+    path instead (the device idles between the two events).  A trace
+    that holds no device interval at all (seen once, for a 1.4 us kernel)
+    is taken again; after `tries` such traces the measurement fails."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    return device_busy_ms(prof) / n
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        busy = device_busy_ms(prof)
+        if busy > 0.0:
+            return busy / n
+    raise AssertionError(f"torch.profiler traced no device time in {tries} "
+                         "traces")
 
 
 def phase_blur(seed, dev, bw, f32_peak):
@@ -490,8 +509,8 @@ def phase_blur(seed, dev, bw, f32_peak):
     rough and depth, C=3 for albedo) and on a ragged 10x13 grid.  Returns
     its JSON record, taken at C=1 (55 of a level's 68 launches), with
     device times: the kernel, the plain version and torch.sparse.mm each
-    take a few microseconds of device time a call, far below the host's
-    launch path that CUDA events around one call would time."""
+    take a few microseconds of device time a call, below the host's launch
+    path that CUDA events around a run of calls read."""
     rng = np.random.RandomState(seed + 5)
     full, ragged = noisy_grid(rng, *IM_HW, dev), noisy_grid(rng, 10, 13, dev)
     record = None
@@ -506,7 +525,7 @@ def phase_blur(seed, dev, bw, f32_peak):
         log(f"[kernels] bilateral_blur {label} V={v} C={c}: bit-equal to "
             f"plain; device time per call: kernel {ms:.5f} ms, plain "
             f"{plain_ms:.5f} ms, torch.sparse.mm {library_ms:.5f} ms; "
-            "CUDA events per call: "
+            "CUDA events over a run, per call: "
             + ", ".join(f"{t:.4f}" for t in events)
             + f" ms; bound {bound_ms:.5f} ms ({bound_by}: "
             f"{n_bytes / 1e6:.2f} MB, {flops / 1e6:.2f} MFLOP)")
@@ -517,28 +536,53 @@ def phase_blur(seed, dev, bw, f32_peak):
     return record
 
 
+def check_render_sg_bwd_smem(dev):
+    """The render backward's shared memory a block at K=12 and K=24, and
+    a K past the card's per-block limit raises."""
+    lib = sg_render._lib("sg_render")
+    log("[kernels] render_sg_bwd shared memory a block (D=128): "
+        + ", ".join(f"{lib.render_sg_bwd_smem_bytes(k, N_DIRS)} B at K={k}"
+                    for k in (SG_NUM, 24)))
+    k = 1
+    while (lib.render_sg_bwd_smem_bytes(k, N_DIRS)
+           <= sg_render._SMEM_OPTIN_LIMIT):
+        k += 1
+    args = kernel_inputs(np.random.RandomState(0), 1, 2, 3, k, dev)
+    cot = [torch.zeros(1, 2, 3, 3, device=dev)] * 2
+    try:
+        sg_render.render_sg_bwd(*args, *cot)
+    except ValueError as err:
+        log(f"[kernels] render_sg_bwd K={k} raises: {err}")
+    else:
+        raise AssertionError(f"render_sg_bwd K={k}: no ValueError")
+
+
 def phase_kernels(seed, dev):
     """Every kernel vs its plain version (a backward also vs
     torch.autograd of the plain forward) at its main-path shape, a ragged
-    10x13 and K=4; the bilateral blur on grids.  Returns {name: JSON
-    record at the main-path shape}."""
+    10x13 and K=4 (the render backward also at K=24); the bilateral blur
+    on grids.  Returns {name: JSON record at the main-path shape}."""
     rng = np.random.RandomState(seed)
     bw, f32_peak = card_peaks(torch.cuda.get_device_name(0))
     records = {}
     for name, (check, main_shape) in KERNEL_CHECKS.items():
         b = main_shape[0]
-        for label, shape in (("main", main_shape),
-                             ("ragged", (1, 10, 13, SG_NUM)),
-                             ("K=4", (b, *ENV_RC, 4))):
+        shapes = [("main", main_shape), ("ragged", (1, 10, 13, SG_NUM)),
+                  ("K=4", (b, *ENV_RC, 4))]
+        if name == "render_sg_bwd":
+            check_render_sg_bwd_smem(dev)
+            shapes.append(("K=24", (1, 10, 13, 24)))
+        for label, shape in shapes:
             args = kernel_inputs(rng, *shape, dev)
-            errs, ms, plain_ms, n_bytes, flops = check(args, shape)
+            errs, fns, n_bytes, flops = check(args, shape)
+            dev_ms, ev_ms = timings(fns)
             bound_ms, bound_by = bound(n_bytes, flops, bw, f32_peak)
-            log_kernel(name, label, shape, errs, ms, plain_ms, bound_ms,
+            log_kernel(name, label, shape, errs, dev_ms, ev_ms, bound_ms,
                        bound_by, n_bytes, flops)
             if label == "main":
-                records[name] = record_of(name, errs, ms, plain_ms, bound_ms,
+                records[name] = record_of(name, errs, *dev_ms, bound_ms,
                                           bound_by)
-            del args
+            del args, fns
         torch.cuda.empty_cache()
     records["bilateral_blur"] = phase_blur(seed, dev, bw, f32_peak)
     return records

@@ -1,5 +1,6 @@
 // Per-pixel SG lighting and shading math shared by the training kernels
-// (sg_envmap.cu, sg_render.cu), forward and hand-derived adjoint.
+// (sg_envmap.cu, sg_render.cu, sg_render_bwd.cuh), forward and hand-derived
+// adjoint.
 //
 // The forward follows the TPU kernels' `_shade_tile_math` and
 // `_env_tile_math` (inverserenderingofindoorscene_tpu/ops/sg_render.py:56-186,
@@ -7,18 +8,39 @@
 // the same forward for serving.  The Pallas backwards run `jax.vjp` of that
 // math inside the kernel; CUDA has no autodiff, so the adjoint is written
 // out here in reverse order of the forward.  Its plain PyTorch twin,
-// `ops/sg_render.py:render_sg_bwd_plain`, runs the same formulas in the same
-// order and is held against torch.autograd and jax.vjp on the CPU.
+// `ops/sg_render.py:render_sg_bwd_plain`, runs the same formulas pass for
+// pass, (A) radiance adjoint, (B) lobes, (C) shading adjoint, each over all
+// directions at once where the render backward kernel runs the three per
+// chunk of directions; it is held against torch.autograd and jax.vjp on
+// the CPU.
 //
 // Clamp derivatives follow jnp.clip (= minimum(maximum(x, lo), hi)): 1
 // inside, 1/2 exactly at a bound, 0 outside.
 //
 // IEEE math only: no --use_fast_math, and 1/sqrtf rather than rsqrtf (the
 // GGX term is ill-conditioned at low roughness; see sg_render_env.cu).
+//
+// The per-pixel math is __host__ __device__: outside nvcc (a plain C++
+// compiler building the CPU check of the render backward,
+// tests/test_torch_sg_render_host.py) the CUDA qualifiers become plain C++
+// and float4 a plain struct; the warp-level helpers exist only under nvcc.
 
 #pragma once
 
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#else
+#include <math.h>
+#define __host__
+#define __device__
+#define __forceinline__ inline
+struct float4 {
+  float x, y, z, w;
+};
+inline float4 make_float4(float x, float y, float z, float w) {
+  return float4{x, y, z, w};
+}
+#endif
 
 namespace sgk {
 
@@ -26,28 +48,30 @@ constexpr float kPi = 3.14159265358979323846f;
 constexpr float kLn2 = 0.69314718055994530942f;
 constexpr int kWarp = 32;
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+__host__ __device__ __forceinline__ float inv_sqrt(float x) {
+  return 1.0f / sqrtf(x);
 }
 
-__device__ __forceinline__ float inv_sqrt(float x) { return 1.0f / sqrtf(x); }
-
-__device__ __forceinline__ float clamp01(float x) {
+__host__ __device__ __forceinline__ float clamp01(float x) {
   return fminf(fmaxf(x, 0.0f), 1.0f);
 }
 
 // d max(x, lo) / dx and d min(x, hi) / dx with jnp's tie rule
-__device__ __forceinline__ float above(float x, float lo) {
+__host__ __device__ __forceinline__ float above(float x, float lo) {
   return x > lo ? 1.0f : (x == lo ? 0.5f : 0.0f);
 }
-__device__ __forceinline__ float below(float x, float hi) {
+__host__ __device__ __forceinline__ float below(float x, float hi) {
   return x < hi ? 1.0f : (x == hi ? 0.5f : 0.0f);
 }
-__device__ __forceinline__ float inside(float x, float lo, float hi) {
+__host__ __device__ __forceinline__ float inside(float x, float lo,
+                                                 float hi) {
   return above(x, lo) * below(x, hi);
 }
+
+// One lobe's seven scalars: axis, sharpness, RGB amplitude.
+struct Lobe {
+  float ax, ay, az, lamb, wr, wg, wb;
+};
 
 // The pixel's 7K SG scalars, staged in shared memory by its warp:
 // axis [3K] | lamb [K] | weight [3K].
@@ -55,39 +79,29 @@ struct Lobes {
   const float* axis;
   const float* lamb;
   const float* weight;
+
+  __host__ __device__ __forceinline__ Lobe at(int k) const {
+    return Lobe{axis[3 * k],   axis[3 * k + 1],   axis[3 * k + 2], lamb[k],
+                weight[3 * k], weight[3 * k + 1], weight[3 * k + 2]};
+  }
 };
 
-// Copy pixel p's lobes into this warp's 7K floats of shared memory.
-__device__ __forceinline__ Lobes stage_lobes(float* s, const float* axis,
-                                             const float* lamb,
-                                             const float* weight,
-                                             long long p, int k_num,
-                                             int lane) {
-  Lobes l{s, s + 3 * k_num, s + 4 * k_num};
-  float* s_axis = s;
-  float* s_lamb = s + 3 * k_num;
-  float* s_wgt = s + 4 * k_num;
-  for (int i = lane; i < 3 * k_num; i += kWarp) {
-    s_axis[i] = axis[p * 3 * k_num + i];
-    s_wgt[i] = weight[p * 3 * k_num + i];
-  }
-  for (int i = lane; i < k_num; i += kWarp) s_lamb[i] = lamb[p * k_num + i];
-  __syncwarp();
-  return l;
+// e_k(l) = exp(lamb_k (axis_k . l - 1)); cosm1 = axis_k . l - 1
+__host__ __device__ __forceinline__ float lobe(const Lobe& g, float4 c,
+                                               float* cosm1) {
+  const float cosv = c.x * g.ax + c.y * g.ay + c.z * g.az;
+  *cosm1 = cosv - 1.0f;
+  return expf(g.lamb * *cosm1);
 }
 
-// e_k(l) = exp(lamb_k (axis_k . l - 1)); cosm1 = axis_k . l - 1
-__device__ __forceinline__ float lobe(const Lobes& g, int k, float4 c,
-                                      float* cosm1) {
-  const float cosv = c.x * g.axis[3 * k] + c.y * g.axis[3 * k + 1] +
-                     c.z * g.axis[3 * k + 2];
-  *cosm1 = cosv - 1.0f;
-  return expf(g.lamb[k] * *cosm1);
+__host__ __device__ __forceinline__ float lobe(const Lobes& g, int k,
+                                               float4 c, float* cosm1) {
+  return lobe(g.at(k), c, cosm1);
 }
 
 // The SG mixture at direction c: env_c = sum_k w_kc e_k.
-__device__ __forceinline__ void mixture(const Lobes& g, int k_num, float4 c,
-                                        float env[3]) {
+__host__ __device__ __forceinline__ void mixture(const Lobes& g, int k_num,
+                                                 float4 c, float env[3]) {
   env[0] = env[1] = env[2] = 0.0f;
   for (int k = 0; k < k_num; ++k) {
     float cosm1;
@@ -114,9 +128,10 @@ struct Frame {
   float r, kg, a2, ndv, nom1;
 };
 
-__device__ __forceinline__ Frame make_frame(float nx, float ny, float nz,
-                                            float vx, float vy, float vz,
-                                            float rough) {
+__host__ __device__ __forceinline__ Frame make_frame(float nx, float ny,
+                                                     float nz, float vx,
+                                                     float vy, float vz,
+                                                     float rough) {
   Frame f;
   f.nx = nx;
   f.ny = ny;
@@ -165,7 +180,8 @@ struct Shade {
   float nom0, nom2, nomr, nom, spec, ndl_w, spec_w;
 };
 
-__device__ __forceinline__ Shade shade(const Frame& f, float4 c, float f0) {
+__host__ __device__ __forceinline__ Shade shade(const Frame& f, float4 c,
+                                                float f0) {
   Shade s;
   s.vl = c.x * f.v_cx + c.y * f.v_cy + c.z * f.nv;
   s.h2 = (1.0f + s.vl) * 0.5f;
@@ -196,9 +212,11 @@ struct FrameGrad {
 // per-pixel scalars and add them to `acc`.  Ed = sum_c gd_c albedo_c/pi
 // env_c and Es = sum_c gs_c env_c are the adjoints of ndl_w and spec_w
 // through diffuse and specular.
-__device__ __forceinline__ void shade_adjoint(const Frame& f, const Shade& s,
-                                              float4 c, float f0, float e_d,
-                                              float e_s, FrameGrad& acc) {
+__host__ __device__ __forceinline__ void shade_adjoint(const Frame& f,
+                                                       const Shade& s,
+                                                       float4 c, float f0,
+                                                       float e_d, float e_s,
+                                                       FrameGrad& acc) {
   const float g_ndlw = e_d + s.spec * e_s;
   const float g_spec = s.ndl_w * e_s;
   float g_ndl = g_ndlw * c.w;
@@ -240,10 +258,10 @@ __device__ __forceinline__ void shade_adjoint(const Frame& f, const Shade& s,
 
 // The per-pixel chain from the summed adjoints back to the raw normal and
 // the roughness input.
-__device__ __forceinline__ void frame_adjoint(const Frame& f,
-                                              const FrameGrad& g,
-                                              float d_normal[3],
-                                              float* d_rough) {
+__host__ __device__ __forceinline__ void frame_adjoint(const Frame& f,
+                                                       const FrameGrad& g,
+                                                       float d_normal[3],
+                                                       float* d_rough) {
   *d_rough = 0.5f * g.r;
   // n_cy = (uy - uy nn) inv_cy
   float gux = 0.0f, guy = g.n_cy * (1.0f - f.nn) * f.inv_cy, guz = 0.0f;
@@ -295,13 +313,14 @@ __device__ __forceinline__ void frame_adjoint(const Frame& f,
   d_normal[2] = guz * f.inv_n + 2.0f * g_s * f.nz;
 }
 
-// Adjoint of the SG mixture at direction c for lobe k, given the radiance
-// adjoint genv[3] there: adds d w_kc, d lamb_k and (d axis_k) / lamb_k.
-__device__ __forceinline__ void lobe_adjoint(const Lobes& g, int k, float4 c,
-                                             const float genv[3], float e,
-                                             float cosm1, float acc[7]) {
-  const float ge = genv[0] * g.weight[3 * k] + genv[1] * g.weight[3 * k + 1] +
-                   genv[2] * g.weight[3 * k + 2];
+// Adjoint of the SG mixture at direction c for lobe g, given the radiance
+// adjoint genv[3] there: adds d w_c, d lamb and (d axis) / lamb, in that
+// order, to acc[7].
+__host__ __device__ __forceinline__ void lobe_adjoint(const Lobe& g, float4 c,
+                                                      const float genv[3],
+                                                      float e, float cosm1,
+                                                      float acc[7]) {
+  const float ge = genv[0] * g.wr + genv[1] * g.wg + genv[2] * g.wb;
   acc[0] += genv[0] * e;
   acc[1] += genv[1] * e;
   acc[2] += genv[2] * e;
@@ -310,6 +329,41 @@ __device__ __forceinline__ void lobe_adjoint(const Lobes& g, int k, float4 c,
   acc[4] += gee * c.x;
   acc[5] += gee * c.y;
   acc[6] += gee * c.z;
+}
+
+__host__ __device__ __forceinline__ void lobe_adjoint(const Lobes& g, int k,
+                                                      float4 c,
+                                                      const float genv[3],
+                                                      float e, float cosm1,
+                                                      float acc[7]) {
+  lobe_adjoint(g.at(k), c, genv, e, cosm1, acc);
+}
+
+#ifdef __CUDACC__
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Copy pixel p's lobes into this warp's 7K floats of shared memory.
+__device__ __forceinline__ Lobes stage_lobes(float* s, const float* axis,
+                                             const float* lamb,
+                                             const float* weight,
+                                             long long p, int k_num,
+                                             int lane) {
+  Lobes l{s, s + 3 * k_num, s + 4 * k_num};
+  float* s_axis = s;
+  float* s_lamb = s + 3 * k_num;
+  float* s_wgt = s + 4 * k_num;
+  for (int i = lane; i < 3 * k_num; i += kWarp) {
+    s_axis[i] = axis[p * 3 * k_num + i];
+    s_wgt[i] = weight[p * 3 * k_num + i];
+  }
+  for (int i = lane; i < k_num; i += kWarp) s_lamb[i] = lamb[p * k_num + i];
+  __syncwarp();
+  return l;
 }
 
 // Reduce lobe k's seven sums over the warp and write them (lane 0).
@@ -332,5 +386,7 @@ __device__ __forceinline__ void write_lobe_grads(const Lobes& g, int k,
     d_axis[o + 2] = lam * acc[6];
   }
 }
+
+#endif  // __CUDACC__
 
 }  // namespace sgk

@@ -18,28 +18,57 @@
 // D=128) the forward moves 7K+7 = 91 input floats and 6 output floats a
 // pixel (~37 MB, ~11 us) but does N (8K+45) D ~ 1.73 GFLOP (~26 us at the
 // 67 TFLOP/s f32 rate), so it is bound by operations; the backward does
-// about three times the forward's operations (~78 us).  Every operation is
-// per pixel and per direction; there is no reuse for tensor cores.
+// about three times the forward's operations, ~5.2 GFLOP (~78 us at B=5).
+// Every operation is per pixel and per direction; there is no reuse for
+// tensor cores.  That count takes an IEEE divide or square root as one
+// operation, but each is a MUFU seed, a Newton refinement and a branch to a
+// slow path: per pixel and direction the backward runs 6 divides and 2
+// square roots (two `shade` calls, one `shade_adjoint`), 2 exp2f and K
+// expf.  In practice the backward is bound by the instruction issue rate:
+// its SASS issues ~620 instructions per pixel and direction at K=12, 62%
+// of them in the lobe loop (~32 per lobe and direction: the IEEE expf, the
+// mixture, the seven sums, the shared-memory rows), ~240 M warp
+// instructions a launch, ~0.23-0.26 ms at 132 SMs x 4 schedulers and
+// 1.75-1.98 GHz.  It holds 255 registers (a 60-byte spill), so 4 blocks
+// (8 warps) are resident per SM; the launch takes ~0.40 ms on an H100
+// 80GB HBM3 at 700 W, ~60% of the issue rate.
 //
-// What the design does about it.  One warp per pixel, eight pixels to a
-// block; lane i takes directions i, i+32, ....  The pixel's 7K SG scalars
-// are staged once in shared memory and read as broadcasts; the per-pixel
-// frame (normal, tangent frame, view products, roughness terms) is computed
-// by every lane in registers.  The forward reduces its six sums with warp
-// shuffles.  The backward runs three passes over the lane's directions, all
-// in registers: (A) the shading weights give the radiance adjoint
-// g_env_c = gd_c albedo_c/pi ndl_w + gs_c spec_w; (B) lobes outside,
-// directions inside, rebuild the mixture and reduce each lobe's seven sums
-// with shuffles; (C) the shading adjoint, with the rebuilt mixture, reduced
-// to nine per-pixel sums, then the per-pixel chain back to the normal.
+// The forward's design.  One warp per pixel, eight pixels to a block; lane
+// i takes directions i, i+32, ....  The pixel's 7K SG scalars are staged
+// once in shared memory and read as broadcasts; the per-pixel frame
+// (normal, tangent frame, view products, roughness terms) is computed by
+// every lane in registers; the six sums are reduced with warp shuffles.
+//
+// The backward's design (as the TPU kernel, pixels along the lanes).  One
+// thread per pixel, 64 pixels to a block, so that no sum crosses lanes and
+// the per-pixel work (the frame, its adjoint, the epilogue) runs once per
+// pixel rather than on 32 lanes.  The block stages the [D, 4] direction
+// table and its pixels' lobe inputs into shared memory, the lobes as rows
+// [field][k][pixel] (65 floats apart, so that the coalesced staging writes
+// spread over the banks); each thread keeps its 7K lobe gradient sums in
+// the same layout, so a warp's accesses to one row fall on 32 banks.  The
+// threads walk the directions in lockstep, so each direction read is a
+// broadcast.  Per chunk of 8 directions, in registers: (A) the radiance
+// adjoint, (B) lobes outside, directions inside, the rebuilt mixture and
+// each lobe's seven partial sums added to its rows, (C) the shading
+// adjoint into the nine per-pixel sums (sg_render_bwd.cuh, which the CPU
+// check also builds).  Then each thread runs the frame adjoint for its
+// pixel, and the block writes the lobe gradients out of shared memory with
+// coalesced stores.  Shared memory is 16 D + 2 x 7K x 65 x 4 bytes a block
+// (45,728 B at K=12, D=128); above 48 KB (K >= 13) the launch opts in, up
+// to the card's per-block limit (K <= 63 at D=128).
 
-#include "sg_common.cuh"
+#include "sg_render_bwd.cuh"
 
 namespace {
 
 using namespace sgk;
 
 constexpr int kWarpsPerBlock = 8;
+// the backward: pixels (threads) to a block, and its shared-memory row
+// length, one float of padding so that staging writes spread over banks
+constexpr int kBwdThreads = 64;
+constexpr int kBwdRow = kBwdThreads + 1;
 
 __device__ __forceinline__ Frame pixel_frame(const float* normal,
                                              const float* rough,
@@ -86,9 +115,33 @@ __global__ void render_sg_fwd_kernel(
   }
 }
 
-// DPL directions per lane (D <= 32 DPL), kept in registers across passes.
-template <int DPL>
-__global__ void render_sg_bwd_kernel(
+// Stage one block's lobe inputs [pixel][k][i] (i < width) into rows
+// [field0 + i][k][pixel] of kBwdRow floats; the global reads coalesce.
+__device__ __forceinline__ void stage_rows(float* rows, const float* src,
+                                           int n_here, int k_num, int width,
+                                           int field0) {
+  for (int e = threadIdx.x; e < n_here * k_num * width; e += kBwdThreads) {
+    const int px = e / (k_num * width), r = e - px * k_num * width;
+    const int k = r / width, i = r - k * width;
+    rows[((field0 + i) * k_num + k) * kBwdRow + px] = src[e];
+  }
+}
+
+// The inverse of stage_rows, for the gradients; the global writes coalesce.
+__device__ __forceinline__ void store_rows(const float* rows, float* dst,
+                                           int n_here, int k_num, int width,
+                                           int field0) {
+  for (int e = threadIdx.x; e < n_here * k_num * width; e += kBwdThreads) {
+    const int px = e / (k_num * width), r = e - px * k_num * width;
+    const int k = r / width, i = r - k * width;
+    dst[e] = rows[((field0 + i) * k_num + k) * kBwdRow + px];
+  }
+}
+
+// One thread per pixel, kBwdThreads pixels to a block.  Shared memory holds
+// the direction table, then the block's lobe inputs and lobe gradients as
+// rows [field][k][pixel].
+__global__ void __launch_bounds__(kBwdThreads) render_sg_bwd_kernel(
     const float* __restrict__ albedo, const float* __restrict__ normal,
     const float* __restrict__ rough, const float* __restrict__ axis,
     const float* __restrict__ lamb, const float* __restrict__ weight,
@@ -99,88 +152,55 @@ __global__ void render_sg_bwd_kernel(
     float* __restrict__ d_axis, float* __restrict__ d_lamb,
     float* __restrict__ d_weight, long long n_pix, int hw, int k_num,
     int d_num, float f0) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long p = (long long)blockIdx.x * kWarpsPerBlock + warp;
-  if (p >= n_pix) return;
-  const Lobes g = stage_lobes(smem + warp * 7 * k_num, axis, lamb, weight, p,
-                              k_num, lane);
-  const Frame f = pixel_frame(normal, rough, view, p, hw);
-  float gd[3], gs[3], gda[3];
-#pragma unroll
-  for (int ch = 0; ch < 3; ++ch) {
-    gd[ch] = grad_diffuse[3 * p + ch];
-    gs[ch] = grad_specular[3 * p + ch];
-    gda[ch] = gd[ch] * albedo[3 * p + ch] * (1.0f / kPi);
-  }
-
-  // (A) radiance adjoint per direction; a missing direction (d >= D) has
-  // zero solid angle, so its ndl_w, spec_w and adjoint are all zero
-  float4 c[DPL];
-  float genv[DPL][3], env[DPL][3];
-#pragma unroll
-  for (int j = 0; j < DPL; ++j) {
-    const int d = lane + kWarp * j;
-    c[j] = d < d_num ? dirs[d] : make_float4(0.f, 0.f, 1.f, 0.f);
-    const Shade s = shade(f, c[j], f0);
+  extern __shared__ float4 smem4[];
+  float4* s_dirs = smem4;
+  float* s_lobes = reinterpret_cast<float*>(smem4 + d_num);
+  float* s_grads = s_lobes + 7 * k_num * kBwdRow;
+  const int t = threadIdx.x;
+  const long long p0 = (long long)blockIdx.x * kBwdThreads;
+  const int n_here = (int)min((long long)kBwdThreads, n_pix - p0);
+  for (int d = t; d < d_num; d += kBwdThreads) s_dirs[d] = dirs[d];
+  stage_rows(s_lobes, axis + p0 * 3 * k_num, n_here, k_num, 3, 0);
+  stage_rows(s_lobes, lamb + p0 * k_num, n_here, k_num, 1, 3);
+  stage_rows(s_lobes, weight + p0 * 3 * k_num, n_here, k_num, 3, 4);
+  __syncthreads();
+  if (t < n_here) {  // the ragged block's spare threads only stage and store
+    const long long p = p0 + t;
+    const long long q = 3 * (p % hw);  // the view vector depends on (row, col)
+    PixelIn in;
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch) {
-      genv[j][ch] = gda[ch] * s.ndl_w + gs[ch] * s.spec_w;
-      env[j][ch] = 0.0f;
+      in.normal[ch] = normal[3 * p + ch];
+      in.view[ch] = view[q + ch];
+      in.albedo[ch] = albedo[3 * p + ch];
+      in.gd[ch] = grad_diffuse[3 * p + ch];
+      in.gs[ch] = grad_specular[3 * p + ch];
     }
-  }
-
-  // (B) lobes: rebuild the mixture, reduce the seven sums of each lobe
-  for (int k = 0; k < k_num; ++k) {
-    float acc[7] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < DPL; ++j) {
-      float cosm1;
-      const float e = lobe(g, k, c[j], &cosm1);
-      env[j][0] += g.weight[3 * k] * e;
-      env[j][1] += g.weight[3 * k + 1] * e;
-      env[j][2] += g.weight[3 * k + 2] * e;
-      lobe_adjoint(g, k, c[j], genv[j], e, cosm1, acc);
-    }
-    write_lobe_grads(g, k, acc, p, k_num, lane, d_axis, d_lamb, d_weight);
-  }
-
-  // (C) shading adjoint against the rebuilt mixture
-  FrameGrad fg{0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  float sd[3] = {0.f, 0.f, 0.f};
-#pragma unroll
-  for (int j = 0; j < DPL; ++j) {
-    const Shade s = shade(f, c[j], f0);
-    const float e_d =
-        gda[0] * env[j][0] + gda[1] * env[j][1] + gda[2] * env[j][2];
-    const float e_s =
-        gs[0] * env[j][0] + gs[1] * env[j][1] + gs[2] * env[j][2];
-    shade_adjoint(f, s, c[j], f0, e_d, e_s, fg);
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) sd[ch] += s.ndl_w * env[j][ch];
-  }
-  fg.r = warp_sum(fg.r);
-  fg.nv = warp_sum(fg.nv);
-  fg.v_cx = warp_sum(fg.v_cx);
-  fg.v_cy = warp_sum(fg.v_cy);
-  fg.n_cy = warp_sum(fg.n_cy);
-  fg.nn = warp_sum(fg.nn);
-#pragma unroll
-  for (int ch = 0; ch < 3; ++ch) sd[ch] = warp_sum(sd[ch]);
-  if (lane == 0) {
-    float dn[3], dr;
-    frame_adjoint(f, fg, dn, &dr);
+    in.rough = rough[p];
+    const PixelGrad g = render_sg_bwd_pixel(
+        in, s_dirs, d_num, f0, LobeRows{s_lobes + t, k_num, kBwdRow},
+        LobeRows{s_grads + t, k_num, kBwdRow});
 #pragma unroll
     for (int ch = 0; ch < 3; ++ch) {
-      d_albedo[3 * p + ch] = gd[ch] * (1.0f / kPi) * sd[ch];
-      d_normal[3 * p + ch] = dn[ch];
+      d_albedo[3 * p + ch] = g.albedo[ch];
+      d_normal[3 * p + ch] = g.normal[ch];
     }
-    d_rough[p] = dr;
+    d_rough[p] = g.rough;
   }
+  __syncthreads();
+  store_rows(s_grads, d_axis + p0 * 3 * k_num, n_here, k_num, 3, 0);
+  store_rows(s_grads, d_lamb + p0 * k_num, n_here, k_num, 1, 3);
+  store_rows(s_grads, d_weight + p0 * 3 * k_num, n_here, k_num, 3, 4);
 }
 
 int smem_bytes(int k_num) {
   return (int)sizeof(float) * kWarpsPerBlock * 7 * k_num;
+}
+
+// The backward's direction table, lobe rows and gradient rows.
+int bwd_smem_bytes(int k_num, int d_num) {
+  return (int)sizeof(float4) * d_num +
+         (int)sizeof(float) * 2 * 7 * k_num * kBwdRow;
 }
 
 unsigned int n_blocks(long long n_pix) {
@@ -212,8 +232,14 @@ int render_sg_fwd_f32(const float* albedo, const float* normal,
   return (int)cudaGetLastError();
 }
 
+// Shared-memory bytes a backward block needs for K lobes and D directions
+// (above 48 KB the launch opts in, up to the card's per-block limit).
+int render_sg_bwd_smem_bytes(int k_num, int d_num) {
+  return bwd_smem_bytes(k_num, d_num);
+}
+
 // As the forward, plus grad_diffuse/grad_specular [N, 3] in; out the six
-// input gradients shaped like the inputs.  D <= 128.
+// input gradients shaped like the inputs.
 int render_sg_bwd_f32(const float* albedo, const float* normal,
                       const float* rough, const float* axis, const float* lamb,
                       const float* weight, const float* view,
@@ -222,23 +248,17 @@ int render_sg_bwd_f32(const float* albedo, const float* normal,
                       float* d_normal, float* d_rough, float* d_axis,
                       float* d_lamb, float* d_weight, long long n_pix, int hw,
                       int k_num, int d_num, float f0, void* stream) {
-  const dim3 grid(n_blocks(n_pix)), block(kWarpsPerBlock * kWarp);
-  const int smem = smem_bytes(k_num);
-  const cudaStream_t s = (cudaStream_t)stream;
-  const float4* d4 = reinterpret_cast<const float4*>(dirs);
-#define SG_RENDER_BWD(DPL)                                                  \
-  render_sg_bwd_kernel<DPL><<<grid, block, smem, s>>>(                      \
-      albedo, normal, rough, axis, lamb, weight, view, d4, grad_diffuse,    \
-      grad_specular, d_albedo, d_normal, d_rough, d_axis, d_lamb, d_weight, \
-      n_pix, hw, k_num, d_num, f0)
-  switch ((d_num + kWarp - 1) / kWarp) {
-    case 1: SG_RENDER_BWD(1); break;
-    case 2: SG_RENDER_BWD(2); break;
-    case 3: SG_RENDER_BWD(3); break;
-    case 4: SG_RENDER_BWD(4); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef SG_RENDER_BWD
+  const int smem = bwd_smem_bytes(k_num, d_num);
+  cudaError_t err = cudaFuncSetAttribute(
+      render_sg_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned int grid =
+      (unsigned int)((n_pix + kBwdThreads - 1) / kBwdThreads);
+  render_sg_bwd_kernel<<<grid, kBwdThreads, smem, (cudaStream_t)stream>>>(
+      albedo, normal, rough, axis, lamb, weight, view,
+      reinterpret_cast<const float4*>(dirs), grad_diffuse, grad_specular,
+      d_albedo, d_normal, d_rough, d_axis, d_lamb, d_weight, n_pix, hw, k_num,
+      d_num, f0);
   return (int)cudaGetLastError();
 }
 

@@ -38,9 +38,13 @@ from inverserenderingofindoorscene_torch.core.sphere import (
 )
 from inverserenderingofindoorscene_torch.ops import build
 
-# dynamic shared memory a block may take without an opt-in attribute
+# dynamic shared memory a block may take without an opt-in attribute, and
+# with it on Hopper (227 KB; the render backward's launch opts in)
 _SMEM_LIMIT = 48 * 1024
-# the backward kernels keep at most four directions per lane in registers
+_SMEM_OPTIN_LIMIT = 227 * 1024
+# the envmap backward keeps at most four directions per lane in registers;
+# the render backward, which walks the directions in chunks, keeps the same
+# bound as its API
 _MAX_BWD_DIRS = 128
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -54,6 +58,7 @@ _SIGNATURES = {
         "render_sg_fwd_f32": [_P] * 10 + [_LL, _I, _I, _I, _F, _P],
         "render_sg_bwd_f32": [_P] * 16 + [_LL, _I, _I, _I, _F, _P],
         "render_sg_smem_bytes": [_I],
+        "render_sg_bwd_smem_bytes": [_I, _I],
     },
     "sg_envmap": {
         "sg_envmap_fwd_f32": [_P] * 5 + [_LL, _I, _I, _P],
@@ -488,9 +493,13 @@ def render_sg_bwd_plain(albedo, normal, rough, axis, lamb, weight,
                         env_height=8, env_width=16):
     """The backward kernel's function in plain PyTorch: the explicit
     adjoint of the TPU kernel's shading math (``_shade_tile_math``, with its
-    |normal| <= 1 shortcut algebra), in the order of ``render_sg_bwd_kernel``
-    (csrc/sg_render.cu).  Returns the gradients of albedo, normal, rough,
-    axis, lamb and weight, shaped like them."""
+    |normal| <= 1 shortcut algebra), formula for formula as
+    ``render_sg_bwd_pixel`` (csrc/sg_render_bwd.cuh) runs it, pass for
+    pass: (A) radiance adjoint, (B) lobes, (C) shading adjoint, then the
+    per-pixel chain.  The kernel runs the three passes per chunk of eight
+    directions and sums over directions in another order; here each pass
+    covers all directions at once.  Returns the gradients of albedo,
+    normal, rough, axis, lamb and weight, shaped like them."""
     b, h, w = albedo.shape[:3]
     k = lamb.shape[-1]
     n = b * h * w
@@ -532,12 +541,16 @@ def _render_launch_inputs(fn, albedo, normal, rough, axis, lamb, weight,
     b, h, w, k = _shading_inputs(fn, albedo, normal, rough, axis, lamb,
                                  weight)
     lib = _lib("sg_render")
-    if lib.render_sg_smem_bytes(k) > _SMEM_LIMIT:
-        raise ValueError(f"{fn}: K={k} exceeds shared memory")
     dev = albedo.device
     consts = (_view(h, w, float(fov_deg), dev),
               _dir_consts(env_height, env_width, dev))
     return lib, (b, h, w, k), consts
+
+
+def _check_smem(fn, k, smem, limit):
+    if smem > limit:
+        raise ValueError(f"{fn}: K={k} needs {smem} B of shared memory a "
+                         f"block, more than {limit}")
 
 
 def render_sg_fwd(albedo, normal, rough, axis, lamb, weight, fov_deg=57.0,
@@ -550,6 +563,7 @@ def render_sg_fwd(albedo, normal, rough, axis, lamb, weight, fov_deg=57.0,
     lib, (b, h, w, k), (view, dirs) = _render_launch_inputs(
         "render_sg_fwd", albedo, normal, rough, axis, lamb, weight, fov_deg,
         env_height, env_width)
+    _check_smem("render_sg_fwd", k, lib.render_sg_smem_bytes(k), _SMEM_LIMIT)
     diffuse = torch.empty_like(albedo)
     specular = torch.empty_like(albedo)
     n = b * h * w
@@ -581,6 +595,8 @@ def render_sg_bwd(albedo, normal, rough, axis, lamb, weight, grad_diffuse,
     d = env_height * env_width
     if d > _MAX_BWD_DIRS:
         raise ValueError(f"render_sg_bwd: {d} directions > {_MAX_BWD_DIRS}")
+    _check_smem("render_sg_bwd", k, lib.render_sg_bwd_smem_bytes(k, d),
+                _SMEM_OPTIN_LIMIT)
     _check("render_sg_bwd", albedo.device, {
         "grad_diffuse": (grad_diffuse, (b, h, w, 3)),
         "grad_specular": (grad_specular, (b, h, w, 3)),
