@@ -11,11 +11,13 @@ Phases, each fatal on failure:
      the card (a backward also against torch.autograd of the plain
      forward), at its main-path shape, a ragged 10x13 and K=4 (the render
      backward also at K=24, above 48 KB of shared memory, and a K past the
-     card's limit must raise), with bounds and with times by device time
-     (the profiler's kernel intervals) and by CUDA events around a run of
-     launches; the bilateral blur bit for bit on the grid of a noisy
-     240x320 guide at C=3 and C=1 and on a ragged 10x13 one, with the
-     time of torch.sparse.mm beside it;
+     card's limit must raise; ``render_sg_env`` also at D=60, K=64, B=8
+     and a ragged K=5, a K past the card's limit must raise, and its
+     ptxas registers and spills are logged), with bounds and with times
+     by device time (the profiler's kernel intervals) and by CUDA events
+     around a run of launches; the bilateral blur bit for bit on the grid
+     of a noisy 240x320 guide at C=3 and C=1 and on a ragged 10x13 one,
+     with the time of torch.sparse.mm beside it;
   4. serving: the two-cascade ``InverseRenderer`` (level 2, lighting on,
      bilateral refinement of both levels with seeded random confidence
      nets) at the reference operating point (image 240x320, lighting grid
@@ -45,6 +47,7 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -247,6 +250,7 @@ def phase_device():
 
 
 def phase_build():
+    """Returns {source: nvcc output} of the sources built here."""
     t0 = time.perf_counter()
     logs = build.build_all()
     log(f"[build] {len(build.SOURCES)} kernel source(s), "
@@ -256,6 +260,38 @@ def phase_build():
             if any(w in line for w in ("entry function", "registers",
                                        "spill")):
                 log(f"[build] {name}: {line.strip()}")
+    return logs
+
+
+def ptxas_entries(out):
+    """{kernel entry: {registers, stack, spill_stores, spill_loads}} from
+    the output of nvcc -Xptxas -v."""
+    entries, cur = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = entries.setdefault(m.group(1), {})
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores,"
+                          r" (\d+) bytes spill loads", line)
+            if m:
+                cur.update(zip(("stack", "spill_stores", "spill_loads"),
+                               map(int, m.groups())))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+    return entries
+
+
+def log_ptxas(name, source, logs):
+    """One [kernels] line a kernel entry of ``source``: ptxas's registers,
+    stack and spills."""
+    entries = ptxas_entries(logs.get(source, ""))
+    if not entries:
+        log(f"[kernels] {name} ptxas: library not built in this run")
+    for entry, info in entries.items():
+        log(f"[kernels] {name} ptxas {entry}: "
+            + ", ".join(f"{k} {v}" for k, v in info.items()))
 
 
 def check_grad(name, got, want, tol=GRAD_SCALED_ATOL):
@@ -318,10 +354,11 @@ def plain_grads(fn, inputs, cotangents):
     return torch.autograd.grad(outs, inputs, cotangents)
 
 
-def check_render_sg_env(args, shape):
+def check_render_sg_env(args, shape, env_hw=(8, 16)):
     b, h, w, k = shape
-    got = sg_render.render_sg_env(*args)
-    want = sg_render.render_sg_env_plain(*args)
+    cfg = {"env_height": env_hw[0], "env_width": env_hw[1]}
+    got = sg_render.render_sg_env(*args, **cfg)
+    want = sg_render.render_sg_env_plain(*args, **cfg)
     torch.cuda.synchronize()
     errs = {
         "diffuse": check_close("diffuse", got[0], want[0],
@@ -330,12 +367,32 @@ def check_render_sg_env(args, shape):
                                  SPECULAR_REL_L1),
         "env": check_close("env", got[2], want[2], *ELEMENT_TOL["env"]),
     }
-    fns = (lambda: sg_render.render_sg_env(*args),
-           lambda: sg_render.render_sg_env_plain(*args))
-    n, d = b * h * w, N_DIRS
+    fns = (lambda: sg_render.render_sg_env(*args, **cfg),
+           lambda: sg_render.render_sg_env_plain(*args, **cfg))
+    n, d = b * h * w, env_hw[0] * env_hw[1]
     n_bytes = 4 * (n * (7 + 7 * k) + h * w * 3 + d * 4 + n * (6 + 3 * d))
     flops = n * (8 * k + 45) * d
     return errs, fns, n_bytes, flops
+
+
+def check_render_sg_env_smem(dev):
+    """render_sg_env's shared memory a block at K=12 and K=64 (above 48 KB
+    the launch opts in), and the first K past the card's limit raises."""
+    lib = sg_render._lib("sg_render_env")
+    log("[kernels] render_sg_env shared memory a block: "
+        + ", ".join(f"{lib.sg_render_env_smem_bytes(k, N_DIRS)} B at K={k}"
+                    for k in (SG_NUM, 64)))
+    k = 1
+    while (lib.sg_render_env_smem_bytes(k, N_DIRS)
+           <= sg_render._SMEM_OPTIN_LIMIT):
+        k += 1
+    args = kernel_inputs(np.random.RandomState(0), 1, 2, 3, k, dev)
+    try:
+        sg_render.render_sg_env(*args)
+    except ValueError as err:
+        log(f"[kernels] render_sg_env K={k} raises: {err}")
+    else:
+        raise AssertionError(f"render_sg_env K={k}: no ValueError")
 
 
 def check_render_sg_fwd(args, shape):
@@ -557,7 +614,7 @@ def check_render_sg_bwd_smem(dev):
         raise AssertionError(f"render_sg_bwd K={k}: no ValueError")
 
 
-def phase_kernels(seed, dev):
+def phase_kernels(seed, dev, ptxas):
     """Every kernel vs its plain version (a backward also vs
     torch.autograd of the plain forward) at its main-path shape, a ragged
     10x13 and K=4 (the render backward also at K=24); the bilateral blur
@@ -567,14 +624,24 @@ def phase_kernels(seed, dev):
     records = {}
     for name, (check, main_shape) in KERNEL_CHECKS.items():
         b = main_shape[0]
+        # (label, shape[, the check's further arguments])
         shapes = [("main", main_shape), ("ragged", (1, 10, 13, SG_NUM)),
                   ("K=4", (b, *ENV_RC, 4))]
         if name == "render_sg_bwd":
             check_render_sg_bwd_smem(dev)
             shapes.append(("K=24", (1, 10, 13, 24)))
-        for label, shape in shapes:
+        if name == "render_sg_env":
+            log_ptxas(name, "sg_render_env", ptxas)
+            check_render_sg_env_smem(dev)
+            # B=8: more than 32 pixels a warp, so every warp computes a
+            # second batch of frames; K=5: inputs copied float by float
+            shapes += [("D=60", (1, *ENV_RC, SG_NUM), (6, 10)),
+                       ("K=64", (1, *ENV_RC, 64)),
+                       ("B=8", (8, *ENV_RC, SG_NUM)),
+                       ("K=5", (1, 10, 13, 5))]
+        for label, shape, *extra in shapes:
             args = kernel_inputs(rng, *shape, dev)
-            errs, fns, n_bytes, flops = check(args, shape)
+            errs, fns, n_bytes, flops = check(args, shape, *extra)
             dev_ms, ev_ms = timings(fns)
             bound_ms, bound_by = bound(n_bytes, flops, bw, f32_peak)
             log_kernel(name, label, shape, errs, dev_ms, ev_ms, bound_ms,
@@ -993,8 +1060,8 @@ def main(argv=None):
         return 1
     dev = torch.device("cuda")
     smi = phase_device()
-    phase_build()
-    records = phase_kernels(args.seed, dev)
+    ptxas = phase_build()
+    records = phase_kernels(args.seed, dev, ptxas)
     launches = phase_serving(args.seed)
     launches.update(phase_training(args.seed, dev))
     # bilateral_blur's count: the serving run's and the bilateral training

@@ -1,11 +1,10 @@
-// Per-pixel SG lighting and shading math shared by the training kernels
-// (sg_envmap.cu, sg_render.cu, sg_render_bwd.cuh), forward and hand-derived
-// adjoint.
+// Per-pixel SG lighting and shading math shared by the kernels
+// (sg_envmap.cu, sg_render.cu, sg_render_bwd.cuh and, for serving,
+// sg_render_env.cuh), forward and hand-derived adjoint.
 //
 // The forward follows the TPU kernels' `_shade_tile_math` and
 // `_env_tile_math` (inverserenderingofindoorscene_tpu/ops/sg_render.py:56-186,
-// :484-510) step for step, every clamp included; `sg_render_env.cu` holds
-// the same forward for serving.  The Pallas backwards run `jax.vjp` of that
+// :484-510) step for step, every clamp included.  The Pallas backwards run `jax.vjp` of that
 // math inside the kernel; CUDA has no autodiff, so the adjoint is written
 // out here in reverse order of the forward.  Its plain PyTorch twin,
 // `ops/sg_render.py:render_sg_bwd_plain`, runs the same formulas pass for
@@ -17,8 +16,10 @@
 // Clamp derivatives follow jnp.clip (= minimum(maximum(x, lo), hi)): 1
 // inside, 1/2 exactly at a bound, 0 outside.
 //
-// IEEE math only: no --use_fast_math, and 1/sqrtf rather than rsqrtf (the
-// GGX term is ill-conditioned at low roughness; see sg_render_env.cu).
+// IEEE math only: no --use_fast_math, and 1/sqrtf rather than rsqrtf: the
+// GGX term is ill-conditioned at low roughness (nom0 = 1 - ndh^2 (1 -
+// alpha^2) cancels), and rsqrtf's 2-ulp approximation moved specular at
+// percent level from the plain version.
 //
 // The per-pixel math is __host__ __device__: outside nvcc (a plain C++
 // compiler building the CPU check of the render backward,

@@ -10,217 +10,218 @@
 //
 // What bounds it.  At the serving shape (B=1, 120x160 grid, K=12, D=128)
 // each pixel reads 7K+7 = 91 floats (plus its 3-float view vector) and
-// writes 6 + 3D = 390; the 384-float envmap is 80% of the ~37 MB moved, and
-// at 3.35 TB/s that is ~11 us.  The arithmetic (n*(8K+45)*D ~ 346 MFLOP and
-// n*(K+2)*D ~ 34 M exp/exp2) is below 10 us at the f32 rate, so the kernel
-// is bound by device-memory bytes, almost all of them the envmap write.
+// writes 6 + 3D = 390; the envmap is 80% of the ~37 MB moved, ~11 us at
+// 3.35 TB/s, and counted as f32 operations (an IEEE expf, divide or square
+// root as one) the work is ~5 us.  Both sit below what the SMs can issue.
+// In SASS (`cuobjdump -sass` of the built library) the lobe loop is 139
+// instructions for 8 lobe-directions (17.4 each, 8 of them the expf), the
+// rest of a pass at most 524 for a lane's 4 directions (131 each: the
+// shading's IEEE square root, reciprocal and divide each carry a range
+// check and a slow-path call), and the per-pixel code at most 566 a lane
+// (142 a direction), most of it the frame batch that runs once every 32
+// pixels.  The lobe loop alone at K=12 is 19200 x 128 x 12 x 17.4 / 32
+// warp instructions, ~17 us at 132 SMs x 4 schedulers x 1.755 GHz.  80
+// registers, no spill; 12,288 + 704 K bytes of shared memory a block for K
+// a multiple of 4 (20,736 at K=12).  Device time 0.0388 ms at K=12 and
+// 0.0263 at K=4 (chip_smoke.py phase 3, H100 80GB HBM3, 700 W), against
+// 0.0630 and 0.0456 for the earlier design of one 128-thread block a
+// pixel, which recomputed the frame on every thread and summed across
+// warps through shared memory.
 //
-// What the design does about it.  One block per pixel, one thread per
-// direction.  The pixel's 7K SG scalars are staged once in shared memory
-// (every thread reads all of them, a broadcast); its 10 BRDF/view scalars
-// are read by every thread from the same addresses (one transaction per
-// warp).  Each thread keeps its direction's radiance in registers, so the
-// SG mixture is evaluated once for both products.  The envmap goes through
-// shared memory and leaves the block as one contiguous run of 3D floats in
-// 16-byte stores, so the dominant write is fully coalesced.  The six
-// diffuse/specular sums over D are reduced with warp shuffles, then across
-// warps in shared memory.  Direction constants (x, y, z, solid-angle
-// weight) are a [D, 4] device array read as float4: neighbouring threads
-// read neighbouring directions, which `__constant__` memory would
-// serialize.  The TPU kernel's transposed [D, P] tiles exist for TPU lanes
-// and are not carried over.  Making it faster (several pixels per block,
-// TMA for the SG block) is later work.
+// What the card showed (build-time variants of this source, timed side by
+// side in one run each): warps that never wait for each other were alone
+// no faster than blocks of 8-pixel tiles with two barriers a tile; the
+// gain came from storing the envmap straight from registers (faster than
+// float4 stores through shared memory and than a 1-D bulk copy,
+// cp.async.bulk, by lane 0), 32-bit pixel indices and one copy loop for
+// the three input runs.  A 72- or 64-register cap for 28 or 32 warps an SM
+// spilled and ran slower.
 //
-// Numerics follow `_shade_tile_math` step for step, including every clamp:
-// clip(|n|^2, 1e-6, 1), the 1e-12 frame clamps, clip(h2, 1e-6),
-// clip(nom, 1e-6, 4 pi), and the exp2 Fresnel.  The algebraic shortcuts for
-// v.l, |h|^2, n.l and n.h hold while |normal| <= 1 (pooled unit normals
-// only shrink).  Build without --use_fast_math: the tolerances against the
-// plain PyTorch version assume IEEE expf/exp2f/sqrtf and division.
+// The design.  One warp a pixel, and every warp walks its own pixels
+// (warp w of W takes pixels w, w + W, ...), so no barrier joins the warps
+// of a block.  Lane i holds directions i, i+32, i+64, i+96 of a pass of
+// 128 (D > 128 takes several passes; a tail of D runs on dummy directions
+// of zero solid angle).  While the warp works on a pixel, cp.async brings
+// its next pixel's SG inputs (three contiguous runs, in 16-byte copies
+// where K is a multiple of 4) into a second buffer; the lanes turn the
+// arrived inputs into 8-float lobe records (ax ay az lamb | wr wg wb -), so
+// a lane reads a lobe with two broadcast 16-byte loads.  Every 32 pixels,
+// lane i computes the frame of the warp's i-th next pixel (sg_common.cuh
+// `make_frame`) into a slot of shared memory, so the frame runs once a
+// pixel and its load latency once every 32 pixels.  Each lane walks the
+// lobes in the outer loop (unrolled by 2) and its four directions inside,
+// so one record load feeds four independent expf, stores the four mixtures
+// straight from registers (the warp's three stores of one direction slot
+// fill 384 contiguous bytes), then shades them with sg_common.cuh's
+// `shade`.  Each lane sums its directions' six products in registers; one
+// shuffle reduction a sum gives the pixel's diffuse and specular.
+// Per-lane code is in sg_render_env.cuh.
+//
+// Tensor cores do not apply: axis_k . l_d is a product with an inner
+// dimension of 3, the exponential is elementwise, and the final K x 3
+// weighting is too small and would need TF32.
+//
+// Numerics follow `_shade_tile_math` step for step, including every clamp,
+// through sg_common.cuh.  Build without --use_fast_math: the tolerances
+// against the plain PyTorch version assume IEEE expf/exp2f/sqrtf and
+// division (and 1/sqrtf, not rsqrtf).  The lobe stays expf(lamb (cos - 1)),
+// as the TPU kernel's jnp.exp.
 
-#include <cuda_runtime.h>
+#include <climits>
+
+#include "sg_render_env.cuh"
 
 namespace {
 
-constexpr float kPi = 3.14159265358979323846f;
+using namespace sgk;
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+constexpr int kWarps = 8;  // warps (pixels at a time) a block
+constexpr int kThreads = kWarps * kWarp;
+// three blocks (24 warps) an SM: 80 registers, no spill; a 72- or
+// 64-register cap for more warps spills and runs slower
+constexpr int kBlocksPerSM = 3;
+
+// A warp's shared memory, in floats: the frame slots of its next 32
+// pixels | one pixel's lobe records | two buffers of a pixel's raw SG
+// inputs.  Every part is a multiple of 4 floats, so each starts on 16
+// bytes.
+struct WarpSmem {
+  static constexpr int kFrames = kWarp * kFrameFloats;
+  static __host__ __device__ int floats(int k_num) {
+    return kFrames + kRecord * k_num + 2 * Raw::floats(k_num);
+  }
+};
+
+__device__ __forceinline__ void copy16(float* s, const float* g) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(s));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(g)
+               : "memory");
 }
 
-// 1/sqrt with IEEE-rounded sqrtf and division.  The GGX term is
-// ill-conditioned at low roughness (nom0 = 1 - ndh^2 (1 - alpha^2) cancels),
-// and rsqrtf's 2-ulp approximation there moved specular at percent level
-// from the plain version; this form reproduces the TPU kernel's f32
-// arithmetic.
-__device__ __forceinline__ float inv_sqrt(float x) { return 1.0f / sqrtf(x); }
-
-__device__ __forceinline__ float clamp01(float x) {
-  return fminf(fmaxf(x, 0.0f), 1.0f);
+__device__ __forceinline__ void copy4(float* s, const float* g) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(s));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(g)
+               : "memory");
 }
 
-// One block per pixel p, blockDim.x = D rounded up to a warp multiple.
-// Shared memory: env [3D] | sums [6W] | axis [3K] | lamb [K] | weight [3K];
-// the envmap comes first so its float4 reads are 16-byte aligned.
-__global__ void sg_render_env_kernel(
+// Start the copy of pixel p's SG inputs into the raw buffer `raw`; one
+// cp.async group a call, empty past the last pixel.  With `vec` (K a
+// multiple of 4 and the three inputs 16-byte aligned) the three runs lie
+// back to back in `raw` and lane i copies 16-byte chunks i, i + 32, ... of
+// them; else every float alone.
+__device__ __forceinline__ void prefetch_pixel(float* raw, const float* axis,
+                                               const float* lamb,
+                                               const float* weight, int p,
+                                               int n_pix, int k_num, bool vec,
+                                               int lane) {
+  if (p < n_pix) {
+    const float* ax = axis + (long long)p * 3 * k_num;
+    const float* lm = lamb + (long long)p * k_num;
+    const float* wt = weight + (long long)p * 3 * k_num;
+    if (vec) {
+      const int a4 = 3 * k_num / 4, l4 = k_num / 4;
+#pragma unroll 1
+      for (int i = lane; i < 2 * a4 + l4; i += kWarp) {
+        const float* g = i < a4 ? ax + 4 * i
+                                : (i < a4 + l4 ? lm + 4 * (i - a4)
+                                               : wt + 4 * (i - a4 - l4));
+        copy16(raw + 4 * i, g);
+      }
+    } else {
+#pragma unroll 1
+      for (int i = lane; i < 3 * k_num; i += kWarp) {
+        copy4(raw + i, ax + i);
+        copy4(raw + Raw::weight(k_num) + i, wt + i);
+      }
+#pragma unroll 1
+      for (int i = lane; i < k_num; i += kWarp) {
+        copy4(raw + Raw::lamb(k_num) + i, lm + i);
+      }
+    }
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Warp w of W = gridDim.x kWarps takes pixels w, w + W, ...; the warps are
+// numbered warp-major, so the warps with one pixel more spread over the
+// SMs.
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM) sg_render_env_kernel(
     const float* __restrict__ albedo, const float* __restrict__ normal,
     const float* __restrict__ rough, const float* __restrict__ axis,
     const float* __restrict__ lamb, const float* __restrict__ weight,
     const float* __restrict__ view, const float4* __restrict__ dirs,
     float* __restrict__ diffuse, float* __restrict__ specular,
-    float* __restrict__ env, int hw, int k_num, int d_num, float f0) {
+    float* __restrict__ env, int n_pix, int hw, int k_num, int d_num,
+    float f0) {
   extern __shared__ float4 smem4[];
-  const int n_warps = blockDim.x >> 5;
-  float* s_env = reinterpret_cast<float*>(smem4);
-  float* s_sum = s_env + 3 * d_num;
-  float* s_axis = s_sum + 6 * n_warps;
-  float* s_lamb = s_axis + 3 * k_num;
-  float* s_wgt = s_lamb + k_num;
-
-  const long long p = blockIdx.x;
-  const int t = threadIdx.x;
-  for (int i = t; i < 3 * k_num; i += blockDim.x) {
-    s_axis[i] = axis[p * 3 * k_num + i];
-    s_wgt[i] = weight[p * 3 * k_num + i];
-  }
-  for (int i = t; i < k_num; i += blockDim.x) s_lamb[i] = lamb[p * k_num + i];
-
-  // --- per-pixel scalars (every thread, same addresses) ---
-  float nx = normal[3 * p], ny = normal[3 * p + 1], nz = normal[3 * p + 2];
-  const float inv_n =
-      inv_sqrt(fminf(fmaxf(nx * nx + ny * ny + nz * nz, 1e-6f), 1.0f));
-  nx *= inv_n;
-  ny *= inv_n;
-  nz *= inv_n;
-  // tangent frame, up = (0,1,0): camy = normalize(up - (up.n) n),
-  // camx = -normalize(camy x n)
-  float cyx = -ny * nx, cyy = 1.0f - ny * ny, cyz = -ny * nz;
-  const float inv_cy =
-      inv_sqrt(fmaxf(cyx * cyx + cyy * cyy + cyz * cyz, 1e-12f));
-  cyx *= inv_cy;
-  cyy *= inv_cy;
-  cyz *= inv_cy;
-  float cxx = cyy * nz - cyz * ny;
-  float cxy = cyz * nx - cyx * nz;
-  float cxz = cyx * ny - cyy * nx;
-  const float inv_cx =
-      inv_sqrt(fmaxf(cxx * cxx + cxy * cxy + cxz * cxz, 1e-12f));
-  cxx = -cxx * inv_cx;
-  cxy = -cxy * inv_cx;
-  cxz = -cxz * inv_cx;
-
-  const long long q = 3 * (p % hw);  // the view vector depends on (row, col)
-  const float vx = view[q], vy = view[q + 1], vz = view[q + 2];
-  const float nn = nx * nx + ny * ny + nz * nz;  // 1 unless the clamp bit
-  const float nv = nx * vx + ny * vy + nz * vz;
-  const float v_cx = vx * cxx + vy * cxy + vz * cxz;
-  const float v_cy = vx * cyx + vy * cyy + vz * cyz;
-  const float n_cy = (ny - ny * nn) * inv_cy;
-
-  const float r = (rough[p] + 1.0f) * 0.5f;
-  const float k_g = (r + 1.0f) * (r + 1.0f) * (1.0f / 8.0f);
-  const float alpha2 = (r * r) * (r * r);
-  const float ndv = clamp01(nv);
-  const float nom1 = ndv * (1.0f - k_g) + k_g;
-  __syncthreads();  // SG scalars staged
-
-  // --- this thread's direction ---
-  float dr = 0.f, dg = 0.f, db = 0.f, sr = 0.f, sg = 0.f, sb = 0.f;
-  if (t < d_num) {
-    const float4 c = dirs[t];  // (lx, ly, lz, solid-angle weight)
-    float er = 0.f, eg = 0.f, eb = 0.f;
-    for (int k = 0; k < k_num; ++k) {
-      const float cosv = c.x * s_axis[3 * k] + c.y * s_axis[3 * k + 1] +
-                         c.z * s_axis[3 * k + 2];
-      const float e = expf(s_lamb[k] * (cosv - 1.0f));
-      er += s_wgt[3 * k] * e;
-      eg += s_wgt[3 * k + 1] * e;
-      eb += s_wgt[3 * k + 2] * e;
+  const int lane = threadIdx.x & (kWarp - 1), warp = threadIdx.x / kWarp;
+  float* frames =
+      reinterpret_cast<float*>(smem4) + warp * WarpSmem::floats(k_num);
+  float* rec = frames + WarpSmem::kFrames;
+  float* raw = rec + kRecord * k_num;
+  const int raw_n = Raw::floats(k_num);
+  const int n_warps = gridDim.x * kWarps;
+  const int warp_id = warp * gridDim.x + blockIdx.x;
+  const bool vec = (k_num & 3) == 0 &&
+                   ((reinterpret_cast<unsigned long long>(axis) |
+                     reinterpret_cast<unsigned long long>(lamb) |
+                     reinterpret_cast<unsigned long long>(weight)) & 15) == 0;
+  prefetch_pixel(raw, axis, lamb, weight, warp_id, n_pix, k_num, vec, lane);
+  for (int j = 0, p = warp_id; p < n_pix; ++j, p += n_warps) {
+    prefetch_pixel(raw + ((j + 1) & 1) * raw_n, axis, lamb, weight,
+                   p + n_warps, n_pix, k_num, vec, lane);
+    if ((j & (kWarp - 1)) == 0) {  // the frames of this and the next 31
+      const int q = warp_pixel(warp_id, j + lane, n_warps);
+      if (q < n_pix) {
+        frame_slot(albedo, normal, rough, view, q, hw,
+                   frames + kFrameFloats * lane);
+      }
     }
-    s_env[3 * t] = er;
-    s_env[3 * t + 1] = eg;
-    s_env[3 * t + 2] = eb;
+    asm volatile("cp.async.wait_group 1;" ::: "memory");  // this pixel's
+    __syncwarp();
+    build_records(rec, raw + (j & 1) * raw_n, k_num, lane, kWarp);
+    __syncwarp();
 
-    // shading dot products without materializing l and h (exact while
-    // |n| <= 1): v.l, |h|^2 = (1 + v.l)/2, v.h, n.l, n.h
-    const float vl = c.x * v_cx + c.y * v_cy + c.z * nv;
-    const float h2 = (1.0f + vl) * 0.5f;
-    const float inv_h = inv_sqrt(fmaxf(h2, 1e-6f));
-    const float vdh = h2 * inv_h;
-    const float frac0 =
-        f0 + (1.0f - f0) * exp2f((-5.55472f * vdh - 6.98316f) * vdh);
-    const float nl = c.y * n_cy + c.z * nn;
-    const float ndh = clamp01((nv + nl) * 0.5f * inv_h);
-    const float ndl = clamp01(nl);
-    const float frac = alpha2 * frac0;
-    const float nom0 = ndh * ndh * (alpha2 - 1.0f) + 1.0f;
-    const float nom2 = ndl * (1.0f - k_g) + k_g;
-    const float nom = fminf(
-        fmaxf(4.0f * kPi * nom0 * nom0 * nom1 * nom2, 1e-6f), 4.0f * kPi);
-    const float spec = frac / nom;
-    const float ndl_w = ndl * c.w;
-    const float spec_w = spec * ndl_w;
-    dr = ndl_w * er;
-    dg = ndl_w * eg;
-    db = ndl_w * eb;
-    sr = spec_w * er;
-    sg = spec_w * eg;
-    sb = spec_w * eb;
-  }
-
-  // --- reduce the six sums over directions ---
-  const int lane = t & 31, warp = t >> 5;
-  dr = warp_sum(dr);
-  dg = warp_sum(dg);
-  db = warp_sum(db);
-  sr = warp_sum(sr);
-  sg = warp_sum(sg);
-  sb = warp_sum(sb);
-  if (lane == 0) {
-    s_sum[0 * n_warps + warp] = dr;
-    s_sum[1 * n_warps + warp] = dg;
-    s_sum[2 * n_warps + warp] = db;
-    s_sum[3 * n_warps + warp] = sr;
-    s_sum[4 * n_warps + warp] = sg;
-    s_sum[5 * n_warps + warp] = sb;
-  }
-  __syncthreads();  // envmap and partial sums in shared memory
-  if (t < 6) {
-    float s = 0.f;
-    for (int w = 0; w < n_warps; ++w) s += s_sum[t * n_warps + w];
-    if (t < 3) {
-      diffuse[3 * p + t] = albedo[3 * p + t] * (1.0f / kPi) * s;
-    } else {
-      specular[3 * p + t - 3] = s;
+    const float* slot = frames + kFrameFloats * (j & (kWarp - 1));
+    const Frame f = load_frame(slot);
+    float sum[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int c0 = 0; c0 < d_num; c0 += kPassDirs) {
+      float4 c[kDirsPerLane];
+      float mix[kDirsPerLane][3];
+      env_lane_mix(rec, k_num, dirs, d_num, c0, lane, c, mix,
+                   env + (long long)p * (3 * d_num) + 3 * c0);
+      env_lane_shade(f, c, mix, f0, sum);
     }
+#pragma unroll
+    for (int i = 0; i < 6; ++i) sum[i] = warp_sum(sum[i]);
+    if (lane < 3) {
+      const float sd = lane == 0 ? sum[0] : (lane == 1 ? sum[1] : sum[2]);
+      const float ss = lane == 0 ? sum[3] : (lane == 1 ? sum[4] : sum[5]);
+      diffuse[3 * p + lane] = slot[8 + lane] * sd;
+      specular[3 * p + lane] = ss;
+    }
+    __syncwarp();  // the slot, records and raw buffer are read
   }
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
 
-  // --- envmap out: one contiguous run of 3D floats per pixel ---
-  const int n_env = 3 * d_num;
-  float* out = env + p * n_env;
-  if ((n_env & 3) == 0) {  // 16-byte aligned rows: float4 stores
-    const float4* src = reinterpret_cast<const float4*>(s_env);
-    float4* dst = reinterpret_cast<float4*>(out);
-    for (int i = t; i < (n_env >> 2); i += blockDim.x) dst[i] = src[i];
-  } else {
-    for (int i = t; i < n_env; i += blockDim.x) out[i] = s_env[i];
-  }
+int smem_bytes(int k_num) {
+  return (int)sizeof(float) * kWarps * WarpSmem::floats(k_num);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes the kernel needs for K lobes and D directions.
+// Shared-memory bytes a block needs for K lobes (above 48 KB the launch
+// opts in, up to the card's per-block limit); D does not enter.
 int sg_render_env_smem_bytes(int k_num, int d_num) {
-  const int threads = ((d_num + 31) / 32) * 32;
-  return (int)sizeof(float) * (7 * k_num + 3 * d_num + 6 * (threads / 32));
+  (void)d_num;
+  return smem_bytes(k_num);
 }
 
-// Launch on `stream`; returns cudaGetLastError() after the launch.
-// All pointers are contiguous float32 device arrays: albedo/normal [N,3],
+// Launch on `stream`; return the first CUDA error of the launch.  All
+// pointers are contiguous float32 device arrays: albedo/normal [N,3],
 // rough [N,1], axis/weight [N,3K], lamb [N,K], view [HW,3] (pixel p uses
 // row p % HW), dirs [D,4]; out diffuse/specular [N,3], env [N,D,3].
 int sg_render_env_f32(const float* albedo, const float* normal,
@@ -229,13 +230,31 @@ int sg_render_env_f32(const float* albedo, const float* normal,
                       const float* dirs, float* diffuse, float* specular,
                       float* env, long long n_pix, int hw, int k_num,
                       int d_num, float f0, void* stream) {
-  const int threads = ((d_num + 31) / 32) * 32;
-  const int smem = sg_render_env_smem_bytes(k_num, d_num);
-  sg_render_env_kernel<<<(unsigned int)n_pix, threads, smem,
-                         (cudaStream_t)stream>>>(
+  const int smem = smem_bytes(k_num);
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(sg_render_env_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  }
+  // pixel indices are 32-bit, and a frame batch looks 31 strides past a
+  // warp's pixel
+  if (err == cudaSuccess && n_pix > (INT_MAX >> 1)) {
+    err = cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (n_pix + kWarps - 1) / kWarps;
+  const long long slots = (long long)kBlocksPerSM * sms;
+  const unsigned int grid = (unsigned int)(blocks < slots ? blocks : slots);
+  sg_render_env_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       albedo, normal, rough, axis, lamb, weight, view,
-      reinterpret_cast<const float4*>(dirs), diffuse, specular, env, hw,
-      k_num, d_num, f0);
+      reinterpret_cast<const float4*>(dirs), diffuse, specular, env,
+      (int)n_pix, hw, k_num, d_num, f0);
   return (int)cudaGetLastError();
 }
 

@@ -39,7 +39,8 @@ from inverserenderingofindoorscene_torch.core.sphere import (
 from inverserenderingofindoorscene_torch.ops import build
 
 # dynamic shared memory a block may take without an opt-in attribute, and
-# with it on Hopper (227 KB; the render backward's launch opts in)
+# with it on Hopper (227 KB; the render backward's and render_sg_env's
+# launches opt in)
 _SMEM_LIMIT = 48 * 1024
 _SMEM_OPTIN_LIMIT = 227 * 1024
 # the envmap backward keeps at most four directions per lane in registers;
@@ -155,8 +156,9 @@ def render_sg_env(albedo, normal, rough, axis, lamb, weight, fov_deg=57.0,
 
     PRECONDITION (kernel route): |normal| <= 1 per pixel, as for the JAX
     kernel; the plain version has no such precondition.  CUDA tensors must
-    be contiguous float32 on one device.  ``render_sg_env.launches``
-    counts kernel launches.
+    be contiguous float32 on one device; D <= 1024 and K <= 312 (the
+    block's shared memory), else ValueError.
+    ``render_sg_env.launches`` counts kernel launches.
     """
     if not build.on_card("render_sg_env", albedo):
         return render_sg_env_plain(albedo, normal, rough, axis, lamb, weight,
@@ -165,10 +167,10 @@ def render_sg_env(albedo, normal, rough, axis, lamb, weight, fov_deg=57.0,
                                  axis, lamb, weight)
     d = env_height * env_width
     if d > 1024:
-        raise ValueError(f"render_sg_env: {d} directions > 1024 threads")
+        raise ValueError(f"render_sg_env: {d} directions > 1024")
     lib = _lib("sg_render_env")
-    if lib.sg_render_env_smem_bytes(k, d) > _SMEM_LIMIT:
-        raise ValueError(f"render_sg_env: K={k}, D={d} exceed shared memory")
+    _check_smem("render_sg_env", k, lib.sg_render_env_smem_bytes(k, d),
+                _SMEM_OPTIN_LIMIT)
 
     n = b * h * w
     dev = albedo.device
@@ -177,15 +179,13 @@ def render_sg_env(albedo, normal, rough, axis, lamb, weight, fov_deg=57.0,
     env = torch.empty((b, h, w, d, 3), dtype=torch.float32, device=dev)
     if n == 0:
         return diffuse, specular, env
-    view = _view(h, w, float(fov_deg), dev)
-    dirs = _dir_consts(env_height, env_width, dev)
+    ptrs = [x.data_ptr() for x in (
+        albedo, normal, rough, axis, lamb, weight,
+        _view(h, w, float(fov_deg), dev), _dir_consts(env_height, env_width,
+                                                      dev),
+        diffuse, specular, env)]
     build.raise_on("sg_render_env", lib.sg_render_env_f32(
-        albedo.data_ptr(), normal.data_ptr(), rough.data_ptr(),
-        axis.data_ptr(), lamb.data_ptr(), weight.data_ptr(),
-        view.data_ptr(), dirs.data_ptr(), diffuse.data_ptr(),
-        specular.data_ptr(), env.data_ptr(), n, h * w, k, d, float(f0),
-        build.stream(dev),
-    ))
+        *ptrs, n, h * w, k, d, float(f0), build.stream(dev)))
     render_sg_env.launches += 1
     return diffuse, specular, env
 

@@ -21,6 +21,9 @@ from inverserenderingofindoorscene_torch.pipeline.bilateral import (
     bilateral_total_error,
 )
 from inverserenderingofindoorscene_torch.pipeline.light import light_step
+from inverserenderingofindoorscene_torch.utils.weights import (
+    light_adam_state_dict,
+)
 
 
 def reference_adam(params, lr: float = 1e-4,
@@ -37,6 +40,21 @@ def reference_adam(params, lr: float = 1e-4,
     sched = torch.optim.lr_scheduler.LambdaLR(
         opt, lambda step: 0.5 ** (step // epoch_decay_steps))
     return opt, sched
+
+
+def position_schedule(scheduler, count: int) -> None:
+    """Put a :func:`reference_adam` scheduler at optax's step count
+    ``count``: the next ``optimizer.step()`` then uses lr * 0.5^(count //
+    epoch_decay_steps), the rate optax's schedule gives the update at that
+    count, and each ``scheduler.step()`` after it goes on from there.
+    ``None`` (no decay) has no position."""
+    if scheduler is None:
+        return
+    scheduler.last_epoch = count
+    for group, base, rate in zip(scheduler.optimizer.param_groups,
+                                 scheduler.base_lrs, scheduler.lr_lambdas):
+        group["lr"] = base * rate(count)
+    scheduler._last_lr = [g["lr"] for g in scheduler.optimizer.param_groups]
 
 
 class LightTrainStep:
@@ -71,6 +89,14 @@ class LightTrainStep:
         total = (self.reconst_w * losses["reconst"]
                  + self.render_w * losses["render"])
         return total, losses
+
+    def load_optax_state(self, mu: dict, nu: dict, count: int) -> None:
+        """Continue from an optax Adam state of JAX ``LightNets`` params:
+        the moments and the step count into the optimizer
+        (:func:`light_adam_state_dict`), the LR schedule to ``count``."""
+        self.optimizer.load_state_dict(light_adam_state_dict(
+            self.optimizer, self.light_nets, mu, nu, count))
+        position_schedule(self.scheduler, count)
 
     def __call__(self, batch: dict) -> dict:
         self.optimizer.zero_grad(set_to_none=True)

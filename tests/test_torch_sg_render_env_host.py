@@ -1,0 +1,167 @@
+"""The serving kernel's lane arithmetic on the CPU.
+
+``sg_render_env_kernel`` (csrc/sg_render_env.cu) runs one warp per pixel,
+each warp walking its own pixels (``warp_pixel``): every 32 pixels lane
+l computes the frame of the warp's l-th next pixel (``frame_slot``), the
+lanes turn a pixel's arrived inputs into 8-float lobe records
+(``build_records``), then each lane walks the lobes over its four
+directions of a 128-direction pass (``env_lane_mix``) and shades them
+(``env_lane_shade``), and a shuffle reduction sums the lanes.  All of that
+but the copies, the shuffles and the stores is csrc/sg_render_env.cuh.
+Here g++ builds the header into a small library that runs the same
+functions warp by warp and lane by lane, on a few warps so that the frame
+batches roll over, with the butterfly written out in the same order,
+bound with ctypes.  It is held
+against the plain version ``render_sg_env_plain`` and the Pallas
+``render_sg_env`` (interpret mode) on the same numpy inputs, at the
+tolerances of tests/test_torch_sg_render.py::test_render_sg_env_matches_jax:
+diffuse atol 2e-5, specular atol 5e-4, envmap rtol 2e-5 / atol 1e-5.
+"""
+
+import ctypes
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from inverserenderingofindoorscene_tpu.ops import sg_render as jsg_render
+from inverserenderingofindoorscene_torch.ops import sg_render
+from test_torch_sg_render import assert_outputs_close, make_inputs
+from test_torch_sg_render_host import build_host
+
+# the kernel's block over tiles of kEnvPixels pixels, its warps and lanes
+# one after another, with the kernel's C signature less the stream
+HOST_LOOP = r"""
+#include <algorithm>
+#include <vector>
+
+#include "sg_render_env.cuh"
+
+using namespace sgk;
+
+extern "C" int render_sg_env_host(
+    const float* albedo, const float* normal, const float* rough,
+    const float* axis, const float* lamb, const float* weight,
+    const float* view, const float* dirs, float* diffuse, float* specular,
+    float* env, long long n_pix, int hw, int k_num, int d_num, float f0,
+    int n_warps) {
+  // float4 storage: the kernel's shared-memory buffers are 16-byte aligned
+  std::vector<float4> raw4(Raw::floats(k_num) / 4);
+  std::vector<float4> rec4(k_num * kRecord / 4);
+  std::vector<float4> frames4(kWarp * kFrameFloats / 4);
+  std::vector<float4> pass4(3 * kPassDirs / 4);
+  float* raw = reinterpret_cast<float*>(raw4.data());
+  float* rec = reinterpret_cast<float*>(rec4.data());
+  float* frames = reinterpret_cast<float*>(frames4.data());
+  float* pass = reinterpret_cast<float*>(pass4.data());
+  const float4* d4 = reinterpret_cast<const float4*>(dirs);
+  for (int w = 0; w < n_warps; ++w) {
+    for (int j = 0, p = w; p < n_pix; ++j, p += n_warps) {
+      if (j % kWarp == 0) {  // lane l: the frame of the warp's pixel j + l
+        for (int lane = 0; lane < kWarp; ++lane) {
+          const int q = warp_pixel(w, j + lane, n_warps);
+          if (q < n_pix) {
+            frame_slot(albedo, normal, rough, view, q, hw,
+                       frames + kFrameFloats * lane);
+          }
+        }
+      }
+      std::copy(axis + p * 3 * k_num, axis + (p + 1) * 3 * k_num, raw);
+      std::copy(lamb + p * k_num, lamb + (p + 1) * k_num,
+                raw + Raw::lamb(k_num));
+      std::copy(weight + p * 3 * k_num, weight + (p + 1) * 3 * k_num,
+                raw + Raw::weight(k_num));
+      for (int lane = 0; lane < kWarp; ++lane) {
+        build_records(rec, raw, k_num, lane, kWarp);
+      }
+      const float* slot = frames + kFrameFloats * (j % kWarp);
+      const Frame f = load_frame(slot);
+      float sum[kWarp][6] = {};
+      for (int c0 = 0; c0 < d_num; c0 += kPassDirs) {
+        for (int lane = 0; lane < kWarp; ++lane) {
+          float4 c[kDirsPerLane];
+          float mix[kDirsPerLane][3];
+          env_lane_mix(rec, k_num, d4, d_num, c0, lane, c, mix, pass);
+          env_lane_shade(f, c, mix, f0, sum[lane]);
+        }
+        const int n = 3 * std::min(kPassDirs, d_num - c0);
+        for (int i = 0; i < n; ++i) env[p * 3 * d_num + 3 * c0 + i] = pass[i];
+      }
+      // the xor butterfly, lane l adding lane l ^ o: warp_sum's sums, and
+      // bit for bit the reduce-scatter's
+      for (int o = kWarp / 2; o > 0; o >>= 1) {
+        float next[kWarp][6];
+        for (int l = 0; l < kWarp; ++l) {
+          for (int i = 0; i < 6; ++i) next[l][i] = sum[l][i] + sum[l ^ o][i];
+        }
+        std::copy(&next[0][0], &next[0][0] + kWarp * 6, &sum[0][0]);
+      }
+      for (int ch = 0; ch < 3; ++ch) {
+        diffuse[3 * p + ch] = slot[8 + ch] * sum[0][ch];
+        specular[3 * p + ch] = sum[0][3 + ch];
+      }
+    }
+  }
+  return 0;
+}
+"""
+
+# (b, h, w, k, env_height, env_width, warps): 130 pixels on 3 warps take
+# a second batch of frames at a warp's pixel 32 and leave the warps one
+# pixel apart; 84 on 100 leave warps without a pixel
+CASES = {
+    "10x13 K=4 D=128": (1, 10, 13, 4, 8, 16, 3),
+    "10x13 K=12 D=128": (1, 10, 13, 12, 8, 16, 3),
+    "10x13 K=4 D=60": (1, 10, 13, 4, 6, 10, 3),
+    "10x13 K=12 D=60": (1, 10, 13, 12, 6, 10, 3),
+    "2x6x7 K=5 D=200": (2, 6, 7, 5, 10, 20, 100),  # two passes, a tail of 72
+}
+FOV, F0 = 57.0, 0.05
+
+
+@pytest.fixture(scope="module")
+def render_sg_env_host(tmp_path_factory):
+    """The kernel's lane arithmetic built with g++, as a ctypes function."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return build_host(tmp_path_factory, "render_sg_env_host", HOST_LOOP,
+                      [p] * 11 + [ctypes.c_longlong, i, i, i, ctypes.c_float,
+                                  i])
+
+
+def host_outputs(fn, args, env_hw, n_warps):
+    """diffuse, specular, env from the g++ build, on the kernel's
+    constants, with the pixels walked by ``n_warps`` warps."""
+    b, h, w = args[0].shape[:3]
+    k = args[4].shape[-1]
+    d = env_hw[0] * env_hw[1]
+    cpu = torch.device("cpu")
+    view = sg_render._view(h, w, FOV, cpu).numpy()
+    dirs = sg_render._dir_consts(*env_hw, cpu).numpy()
+    ins = [np.ascontiguousarray(x) for x in (*args, view, dirs)]
+    outs = [np.full((b, h, w, 3), np.nan, np.float32),
+            np.full((b, h, w, 3), np.nan, np.float32),
+            np.full((b, h, w, d, 3), np.nan, np.float32)]
+    err = fn(*(x.ctypes.data for x in ins), *(o.ctypes.data for o in outs),
+             b * h * w, h * w, k, d, F0, n_warps)
+    assert err == 0
+    return outs
+
+
+@pytest.mark.parametrize("reference", ["plain", "pallas"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_render_sg_env_lanes_match(render_sg_env_host, case, reference):
+    b, h, w, k, eh, ew, n_warps = CASES[case]
+    args = make_inputs(b=b, h=h, w=w, k=k, seed=11)
+    got = host_outputs(render_sg_env_host, args, (eh, ew), n_warps)
+    for x in got:  # every output element written, none NaN
+        assert np.isfinite(x).all()
+    if reference == "plain":
+        want = [x.numpy() for x in sg_render.render_sg_env_plain(
+            *map(torch.from_numpy, args), fov_deg=FOV, f0=F0, env_height=eh,
+            env_width=ew)]
+    else:
+        want = jsg_render.render_sg_env(
+            *map(jnp.asarray, args), fov_deg=FOV, f0=F0, env_height=eh,
+            env_width=ew, interpret=True)
+    assert_outputs_close(got, want)

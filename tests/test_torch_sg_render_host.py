@@ -94,25 +94,33 @@ ENV_HW = (8, 16)  # D = 128
 FOV, F0 = 57.0, 0.05
 
 
-@pytest.fixture(scope="module")
-def render_sg_bwd_host(tmp_path_factory):
-    """The per-pixel backward built with g++, as a ctypes function."""
+def build_host(tmp_path_factory, name, code, argtypes):
+    """Compile ``code`` (which includes csrc headers) with g++ into a
+    shared library and return its C function ``name`` with ``argtypes``;
+    skip without g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("g++ is not installed")
-    out = tmp_path_factory.mktemp("sg_render_host")
-    src, lib = out / "render_sg_bwd_host.cpp", out / "render_sg_bwd_host.so"
-    src.write_text(HOST_LOOP)
+    out = tmp_path_factory.mktemp(name)
+    src, lib = out / f"{name}.cpp", out / f"{name}.so"
+    src.write_text(code)
     done = subprocess.run(
         [gxx, "-O2", "-shared", "-fPIC", "-std=c++17", "-I", str(build.CSRC),
          "-o", str(lib), str(src)],
         capture_output=True, text=True, timeout=300)
     assert done.returncode == 0, done.stderr
-    fn = ctypes.CDLL(str(lib)).render_sg_bwd_host
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 16 + [ctypes.c_longlong, i, i, i, ctypes.c_float]
+    fn = getattr(ctypes.CDLL(str(lib)), name)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+@pytest.fixture(scope="module")
+def render_sg_bwd_host(tmp_path_factory):
+    """The per-pixel backward built with g++, as a ctypes function."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return build_host(tmp_path_factory, "render_sg_bwd_host", HOST_LOOP,
+                      [p] * 16 + [ctypes.c_longlong, i, i, i, ctypes.c_float])
 
 
 def host_grads(fn, args, cot):

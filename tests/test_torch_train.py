@@ -57,8 +57,11 @@ from inverserenderingofindoorscene_torch.pipeline.brdf import (
     brdf_total_error,
 )
 from inverserenderingofindoorscene_torch.pipeline.light import LightNets
+from inverserenderingofindoorscene_torch.pipeline.bilateral import BilateralNets
 from inverserenderingofindoorscene_torch.train.steps import (
+    make_bilateral_train_step,
     make_light_train_step,
+    position_schedule,
     reference_adam,
 )
 from inverserenderingofindoorscene_torch.utils import weights
@@ -321,9 +324,8 @@ def test_adam_state_carries_across(nets):
     step = make_light_train_step(copy.deepcopy(brdf), light,
                                  use_kernels=False, device="cpu", lr=LR)
     adam = state1.opt_state[0]
-    step.optimizer.load_state_dict(weights.light_adam_state_dict(
-        step.optimizer, light, jax.tree.map(np.asarray, adam.mu),
-        jax.tree.map(np.asarray, adam.nu), int(adam.count)))
+    step.load_optax_state(jax.tree.map(np.asarray, adam.mu),
+                          jax.tree.map(np.asarray, adam.nu), int(adam.count))
     step(port_batch())
     want = weights.light_state_dict(jax.tree.map(np.asarray, state.params))
     after = light.state_dict()
@@ -337,6 +339,79 @@ def test_adam_state_carries_across(nets):
         st = step.optimizer.state[p]
         assert int(st["step"]) == 2
         assert rel_l2(st["exp_avg"].numpy(), mu2[n].numpy()) < 1e-3, n
+
+
+def test_carried_state_continues_the_schedule(nets, jax_results):
+    """A carried optax state at count 2d + 1 continues the halving: the
+    moments of one real JAX step with reference_adam(LR, d), the count
+    set to 2d + 1, and one more update on each side.  The port's step,
+    loaded with ``load_optax_state``, runs at LR / 4 and its update
+    matches JAX's at the tolerances of test_adam_state_carries_across;
+    the same step with the moments and count alone (the schedule left
+    at 0) would run at LR and update 4x too far."""
+    brdf, light, bp, lp = nets
+    d = 3
+    count = 2 * d + 1
+    _, g = jax_results["plain"]
+    tx = jreference_adam(LR, epoch_decay_steps=d)
+    _, state = tx.update(g, tx.init(lp), lp)
+    state = tuple(s._replace(count=jnp.asarray(count, jnp.int32))
+                  if hasattr(s, "count") else s for s in state)
+    updates, _ = tx.update(g, state, lp)
+    want = weights.light_state_dict(jax.tree.map(
+        np.asarray, jax.tree.map(lambda p, u: p + u, lp, updates)))
+    moments = [jax.tree.map(np.asarray, m) for m in (state[0].mu,
+                                                     state[0].nu)]
+    before = {k: v.clone() for k, v in light.state_dict().items()}
+    rate, after = {}, {}
+    for positioned in (True, False):
+        module = copy.deepcopy(light)
+        step = make_light_train_step(copy.deepcopy(brdf), module,
+                                     use_kernels=False, device="cpu", lr=LR,
+                                     epoch_decay_steps=d)
+        if positioned:
+            step.load_optax_state(*moments, count)
+        else:
+            step.optimizer.load_state_dict(weights.light_adam_state_dict(
+                step.optimizer, module, *moments, count))
+        rate[positioned] = step.optimizer.param_groups[0]["lr"]
+        step(port_batch())
+        after[positioned] = module.state_dict()
+    assert rate == {True: LR * 0.25, False: LR}
+    for k, w in want.items():
+        np.testing.assert_allclose(after[True][k].numpy(), w.numpy(),
+                                   atol=2 * LR, rtol=0, err_msg=k)
+        assert rel_l2(after[True][k] - before[k], w - before[k]) < 5e-3, k
+        assert rel_l2(after[False][k] - before[k],
+                      4.0 * (w - before[k])) < 5e-3, k
+
+
+@pytest.mark.parametrize("stage", ["light", "bilateral"])
+def test_position_schedule_matches_optax(nets, stage):
+    """Each step's scheduler, put at a count, runs at the rate optax's
+    reference_adam schedule gives there (lr 0.5^(count // d), JAX
+    train/steps.py:71), and keeps to it over the steps that follow."""
+    lr, d = 1e-3, 2
+    if stage == "light":
+        step = make_light_train_step(copy.deepcopy(nets[0]),
+                                     copy.deepcopy(nets[1]), device="cpu",
+                                     lr=lr, epoch_decay_steps=d)
+    else:
+        step = make_bilateral_train_step(copy.deepcopy(nets[0]),
+                                         BilateralNets(), device="cpu",
+                                         lr=lr, epoch_decay_steps=d)
+    for count in (0, 1, 2, 5, 2 * d + 1, 10):
+        position_schedule(step.scheduler, count)
+        rates = []
+        for _ in range(3):
+            rates.append(step.optimizer.param_groups[0]["lr"])
+            step.optimizer.step()  # no gradients: a no-op update
+            step.scheduler.step()
+        want = [lr * 0.5 ** ((count + i) // d) for i in range(3)]
+        np.testing.assert_allclose(rates, want, rtol=1e-12, err_msg=count)
+        np.testing.assert_allclose(step.scheduler.get_last_lr(),
+                                   [lr * 0.5 ** ((count + 3) // d)],
+                                   rtol=1e-12)
 
 
 def test_light_train_step_descends(nets):
