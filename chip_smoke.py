@@ -12,12 +12,14 @@ Phases, each fatal on failure:
      forward), at its main-path shape, a ragged 10x13 and K=4 (the render
      backward also at K=24, above 48 KB of shared memory, and a K past the
      card's limit must raise; ``render_sg_env`` also at D=60, K=64, B=8
-     and a ragged K=5, a K past the card's limit must raise, and its
-     ptxas registers and spills are logged), with bounds and with times
-     by device time (the profiler's kernel intervals) and by CUDA events
-     around a run of launches; the bilateral blur bit for bit on the grid
-     of a noisy 240x320 guide at C=3 and C=1 and on a ragged 10x13 one,
-     with the time of torch.sparse.mm beside it;
+     and a ragged K=5, and a K past the card's limit must raise;
+     ``render_sg_fwd``, the same walk without the envmap, also at K=64 and
+     B=8; ``sg_envmap_bwd`` also at D=60, D=200, K=64 and B=8; the ptxas
+     registers and spills of those three are logged), with bounds and with
+     times by device time (the profiler's kernel intervals) and by CUDA
+     events around a run of launches; the bilateral blur bit for bit on
+     the grid of a noisy 240x320 guide at C=3 and C=1 and on a ragged
+     10x13 one, with the time of torch.sparse.mm beside it;
   4. serving: the two-cascade ``InverseRenderer`` (level 2, lighting on,
      bilateral refinement of both levels with seeded random confidence
      nets) at the reference operating point (image 240x320, lighting grid
@@ -92,7 +94,7 @@ KERNELS = {
     "render_sg_env": (_CSRC + "sg_render_env.cu", _TPU + "397"),
     "sg_envmap_fwd": (_CSRC + "sg_envmap.cu", _TPU + "513"),
     "sg_envmap_bwd": (_CSRC + "sg_envmap.cu", _TPU + "520"),
-    "render_sg_fwd": (_CSRC + "sg_render.cu", _TPU + "189"),
+    "render_sg_fwd": (_CSRC + "sg_render_env.cu", _TPU + "189"),
     "render_sg_bwd": (_CSRC + "sg_render.cu", _TPU + "197"),
     "bilateral_blur": (_CSRC + "bilateral_blur.cu",
                        "scripts/profile_blur_kernel.py:76"),
@@ -140,12 +142,12 @@ SCALE_RTOL = 1e-2
 GRAD_SCALED_ATOL = 2e-3
 # render_sg's backward, whose normal and rough gradients run through the
 # GGX term and the tangent frame, is held by the relative L2 distance of
-# each whole gradient instead: in f32 the shortcut algebra's own adjoint
-# (the TPU kernel's math) is 3.2e-3 (normal) and 1.0e-3 (rough) from its
-# float64 value at 120x160 K=12, and single elements leave any small
-# elementwise tolerance (tests/test_torch_sg_render.py::
-# test_render_sg_bwd_f32_conditioning).  The lobe and albedo gradients are
-# within 1.5e-4 there.
+# each whole gradient instead: in f32 the TPU kernel's GGX formula (which
+# torch.autograd of the plain forward differentiates) cancels near ndh = 1,
+# and single elements leave any small elementwise tolerance; the kernel's
+# own adjoint takes a form that does not cancel and is ~1e-4 (normal) from
+# its float64 value at 120x160 K=12 (tests/test_torch_sg_render.py::
+# test_render_sg_bwd_f32_conditioning).
 GRAD_REL_L2 = {"normal": 1e-2, "rough": 1e-2, "albedo": 1e-3, "axis": 1e-3,
                "lamb": 1e-3, "weight": 1e-3}
 # training step 1, kernel route vs plain route on one batch: the light
@@ -424,18 +426,27 @@ def check_render_sg_bwd(args, shape):
                            device=args[0].device) for _ in range(2)]
     got = sg_render.render_sg_bwd(*args, *cot)
     explicit = sg_render.render_sg_bwd_plain(*args, *cot)
-    auto = plain_grads(sg_render.render_sg_plain, args, cot)
+    # torch.autograd of the plain forward in float64: in f32 its GGX term
+    # cancels, and a pixel whose GGX denominator sits within f32 noise of
+    # its clamp puts its gradient on the wrong side of the clamp's gate
+    auto = plain_grads(sg_render.render_sg_plain,
+                       [x.double() for x in args], [c.double() for c in cot])
+    auto32 = plain_grads(sg_render.render_sg_plain, args, cot)
     torch.cuda.synchronize()
+    log("[kernels] render_sg_bwd B={} {}x{} K={}: relative L2 vs plain "
+        "adjoint / vs float64 autograd (f32 autograd vs float64 autograd): "
+        .format(*shape)
+        + ", ".join(f"{nm} {rel_l2(g, e):.2e} / {rel_l2(g, a):.2e} "
+                    f"({rel_l2(a32.double(), a):.2e})"
+                    for nm, g, e, a, a32 in zip(GRAD_NAMES, got, explicit,
+                                                auto, auto32)))
     errs = {}
     for nm, g, e, a in zip(GRAD_NAMES, got, explicit, auto):
         tol = GRAD_REL_L2[nm]
         errs[nm] = check_rel_l2(f"d_{nm} vs plain adjoint", g, e, tol)
         errs[f"{nm} (autograd)"] = check_rel_l2(f"d_{nm} vs autograd", g, a,
                                                 tol)
-    log("[kernels] render_sg_bwd B={} {}x{} K={}: relative L2 vs plain "
-        "adjoint / vs autograd: ".format(*shape)
-        + ", ".join(f"{nm} {rel_l2(g, e):.2e} / {rel_l2(g, a):.2e}"
-                    for nm, g, e, a in zip(GRAD_NAMES, got, explicit, auto)))
+    del auto, auto32
     fns = (lambda: sg_render.render_sg_bwd(*args, *cot),
            lambda: sg_render.render_sg_bwd_plain(*args, *cot))
     n, d = b * h * w, N_DIRS
@@ -459,23 +470,25 @@ def check_sg_envmap_fwd(args, shape):
     return errs, fns, n_bytes, flops
 
 
-def check_sg_envmap_bwd(args, shape):
+def check_sg_envmap_bwd(args, shape, env_hw=(8, 16)):
     b, h, w, k = shape
     lobes = args[3:]
-    rng = np.random.RandomState(b * h * w + k)
-    g_env = torch.as_tensor(rng.randn(b, h, w, N_DIRS, 3).astype(np.float32),
+    cfg = {"env_height": env_hw[0], "env_width": env_hw[1]}
+    n, d = b * h * w, env_hw[0] * env_hw[1]
+    rng = np.random.RandomState(n + k)
+    g_env = torch.as_tensor(rng.randn(b, h, w, d, 3).astype(np.float32),
                             device=args[0].device)
-    got = sg_render.sg_envmap_bwd(*lobes, g_env)
-    explicit = sg_render.sg_envmap_bwd_plain(*lobes, g_env)
-    auto = plain_grads(sg_render.sg_envmap_plain, lobes, (g_env,))
+    got = sg_render.sg_envmap_bwd(*lobes, g_env, **cfg)
+    explicit = sg_render.sg_envmap_bwd_plain(*lobes, g_env, **cfg)
+    auto = plain_grads(lambda *x: sg_render.sg_envmap_plain(*x, **cfg),
+                       lobes, (g_env,))
     torch.cuda.synchronize()
     errs = {}
     for nm, g, e, a in zip(GRAD_NAMES[3:], got, explicit, auto):
         errs[nm] = check_grad(f"d_{nm} vs plain adjoint", g, e)
         errs[f"{nm} (autograd)"] = check_grad(f"d_{nm} vs autograd", g, a)
-    fns = (lambda: sg_render.sg_envmap_bwd(*lobes, g_env),
-           lambda: sg_render.sg_envmap_bwd_plain(*lobes, g_env))
-    n, d = b * h * w, N_DIRS
+    fns = (lambda: sg_render.sg_envmap_bwd(*lobes, g_env, **cfg),
+           lambda: sg_render.sg_envmap_bwd_plain(*lobes, g_env, **cfg))
     n_bytes = 4 * (2 * n * 7 * k + d * 4 + n * 3 * d)
     flops = 3 * n * k * 8 * d
     return errs, fns, n_bytes, flops
@@ -630,7 +643,7 @@ def phase_kernels(seed, dev, ptxas):
         if name == "render_sg_bwd":
             check_render_sg_bwd_smem(dev)
             shapes.append(("K=24", (1, 10, 13, 24)))
-        if name == "render_sg_env":
+        if name == "render_sg_env":  # the walk's library: render_sg_fwd too
             log_ptxas(name, "sg_render_env", ptxas)
             check_render_sg_env_smem(dev)
             # B=8: more than 32 pixels a warp, so every warp computes a
@@ -639,6 +652,18 @@ def phase_kernels(seed, dev, ptxas):
                        ("K=64", (1, *ENV_RC, 64)),
                        ("B=8", (8, *ENV_RC, SG_NUM)),
                        ("K=5", (1, 10, 13, 5))]
+        if name == "render_sg_fwd":
+            shapes += [("K=64", (b, *ENV_RC, 64)),
+                       ("B=8", (8, *ENV_RC, SG_NUM))]
+        if name == "sg_envmap_bwd":
+            log_ptxas(name, "sg_envmap", ptxas)
+            # D=60: one short chunk of directions; D=200: four, the last
+            # of 8 (the warp-a-pixel design took D <= 128); K=64: 22
+            # threads a pixel, the last with one lobe
+            shapes += [("D=60", main_shape, (6, 10)),
+                       ("D=200", main_shape, (10, 20)),
+                       ("K=64", (b, *ENV_RC, 64)),
+                       ("B=8", (8, *ENV_RC, SG_NUM))]
         for label, shape, *extra in shapes:
             args = kernel_inputs(rng, *shape, dev)
             errs, fns, n_bytes, flops = check(args, shape, *extra)

@@ -1,5 +1,5 @@
 // Per-pixel SG lighting and shading math shared by the kernels
-// (sg_envmap.cu, sg_render.cu, sg_render_bwd.cuh and, for serving,
+// (sg_envmap.cu, sg_envmap_bwd.cuh, sg_render_bwd.cuh and
 // sg_render_env.cuh), forward and hand-derived adjoint.
 //
 // The forward follows the TPU kernels' `_shade_tile_math` and
@@ -15,6 +15,21 @@
 //
 // Clamp derivatives follow jnp.clip (= minimum(maximum(x, lo), hi)): 1
 // inside, 1/2 exactly at a bound, 0 outside.
+//
+// One departure, in the backward only: the GGX denominator's nom0 =
+// ndh^2 (a2 - 1) + 1 cancels where ndh is near 1 at low roughness, and
+// there nomr = 4 pi nom0^2 nom1 nom2 can sit within f32 noise of its 1e-6
+// clamp, whose gate the gradient crosses with a jump: f32 then puts the
+// pixel's normal and roughness gradient on the wrong side (one such pixel
+// moved the normal gradient of a 5x120x160 tensor by 1.9e-2 relative L2
+// from float64, chip_smoke.py phase 3 on an H100 80GB HBM3 at 700 W).  So
+// the backward (`shade<true>`) takes nom0 = a2 ndh^2 + |n x h|^2, the same
+// value in exact arithmetic, with |n x h|^2 = 1 - ndh^2 from the frame
+// components of v + l, which do not cancel.  The identity needs a unit
+// normal and half vector, so where a clamp leaves either short (|normal|^2
+// or |h|^2 under 1e-6) and where ndh is clamped, the backward keeps the
+// TPU formula.  The forwards keep it everywhere: their value, unlike its
+// gradient, is continuous at the clamp.
 //
 // IEEE math only: no --use_fast_math, and 1/sqrtf rather than rsqrtf: the
 // GGX term is ill-conditioned at low roughness (nom0 = 1 - ndh^2 (1 -
@@ -52,6 +67,8 @@ constexpr int kWarp = 32;
 __host__ __device__ __forceinline__ float inv_sqrt(float x) {
   return 1.0f / sqrtf(x);
 }
+
+__host__ __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
 
 __host__ __device__ __forceinline__ float clamp01(float x) {
   return fminf(fmaxf(x, 0.0f), 1.0f);
@@ -98,6 +115,21 @@ __host__ __device__ __forceinline__ float lobe(const Lobe& g, float4 c,
 __host__ __device__ __forceinline__ float lobe(const Lobes& g, int k,
                                                float4 c, float* cosm1) {
   return lobe(g.at(k), c, cosm1);
+}
+
+// `lobe` with exp2f of a sharpness scaled by log2(e) once a lobe (lamb2 =
+// lamb_k log2 e): e_k = 2^(lamb2 (axis_k . l - 1)).  On the card exp2f is
+// a MUFU.EX2 with a range check, ~4 instructions against ~8 for expf; the
+// extra rounding of lamb2 moves e by ~1e-7 relative where e is not tiny.
+// Only the kernels that choose it call this; `lobe` stays as it is.
+constexpr float kLog2e = 1.44269504088896340736f;
+
+__host__ __device__ __forceinline__ float lobe_exp2(const Lobe& g, float4 c,
+                                                    float lamb2,
+                                                    float* cosm1) {
+  const float cosv = c.x * g.ax + c.y * g.ay + c.z * g.az;
+  *cosm1 = cosv - 1.0f;
+  return exp2f(lamb2 * *cosm1);
 }
 
 // The SG mixture at direction c: env_c = sum_k w_kc e_k.
@@ -176,11 +208,15 @@ __host__ __device__ __forceinline__ Frame make_frame(float nx, float ny,
 
 // Lambert + GGX weights of direction c = (lx, ly, lz, solid angle), from
 // the shortcut algebra for v.l, |h|^2, n.l and n.h (exact while |n| <= 1).
+// kGrad: nom0 as a2 ndh^2 + |n x h|^2 where `cross` (the backward's; see
+// the top), with sx, sy the x and y of v + l in the pixel's frame.
 struct Shade {
   float vl, h2, inv_h, vdh, ex2, frac0, nl, t, ndh, ndl;
-  float nom0, nom2, nomr, nom, spec, ndl_w, spec_w;
+  float sx, sy, nom0, nom2, nomr, nom, spec, ndl_w, spec_w;
+  bool cross;
 };
 
+template <bool kGrad = false>
 __host__ __device__ __forceinline__ Shade shade(const Frame& f, float4 c,
                                                 float f0) {
   Shade s;
@@ -194,7 +230,17 @@ __host__ __device__ __forceinline__ Shade shade(const Frame& f, float4 c,
   s.t = (f.nv + s.nl) * 0.5f * s.inv_h;
   s.ndh = clamp01(s.t);
   s.ndl = clamp01(s.nl);
-  s.nom0 = s.ndh * s.ndh * (f.a2 - 1.0f) + 1.0f;
+  s.cross = kGrad && f.s >= 1e-6f && s.h2 >= 1e-6f && s.t > 0.0f &&
+            s.t < 1.0f;
+  if (s.cross) {
+    s.sx = c.x + f.v_cx;
+    s.sy = c.y + f.v_cy;
+    s.nom0 = f.a2 * s.ndh * s.ndh +
+             (s.sx * s.sx + s.sy * s.sy) * 0.25f * s.inv_h * s.inv_h;
+  } else {
+    s.sx = s.sy = 0.0f;
+    s.nom0 = s.ndh * s.ndh * (f.a2 - 1.0f) + 1.0f;
+  }
   s.nom2 = s.ndl * (1.0f - f.kg) + f.kg;
   s.nomr = 4.0f * kPi * s.nom0 * s.nom0 * f.nom1 * s.nom2;
   s.nom = fminf(fmaxf(s.nomr, 1e-6f), 4.0f * kPi);
@@ -212,7 +258,7 @@ struct FrameGrad {
 // Pull the adjoints of direction c's ndl_w and spec_w back to the
 // per-pixel scalars and add them to `acc`.  Ed = sum_c gd_c albedo_c/pi
 // env_c and Es = sum_c gs_c env_c are the adjoints of ndl_w and spec_w
-// through diffuse and specular.
+// through diffuse and specular.  `s` is shade<true>'s.
 __host__ __device__ __forceinline__ void shade_adjoint(const Frame& f,
                                                        const Shade& s,
                                                        float4 c, float f0,
@@ -236,7 +282,10 @@ __host__ __device__ __forceinline__ void shade_adjoint(const Frame& f,
   // frac0 = f0 + (1 - f0) 2^u, u = (-5.55472 vdh - 6.98316) vdh
   const float g_vdh = g_frac0 * (1.0f - f0) * s.ex2 * kLn2 *
                       (-2.0f * 5.55472f * s.vdh - 6.98316f);
-  const float g_ndh = g_nom0 * 2.0f * s.ndh * (f.a2 - 1.0f);
+  // nom0 = a2 ndh^2 + sin2 where s.cross, sin2 = (sx^2 + sy^2) inv_h^2 / 4
+  const float g_ndh = g_nom0 * 2.0f * s.ndh * (s.cross ? f.a2 : f.a2 - 1.0f);
+  const float g_sin2 = s.cross ? g_nom0 : 0.0f;
+  const float g_s = g_sin2 * 0.5f * s.inv_h * s.inv_h;
   g_ndl += g_nom2 * (1.0f - f.kg);
   const float g_kg = g_nom2 * (1.0f - s.ndl) + g_nom1 * (1.0f - f.ndv);
   float g_nl = g_ndl * inside(s.nl, 0.0f, 1.0f);
@@ -244,15 +293,16 @@ __host__ __device__ __forceinline__ void shade_adjoint(const Frame& f,
   float g_nv = g_t * 0.5f * s.inv_h +
                g_nom1 * (1.0f - f.kg) * inside(f.nv, 0.0f, 1.0f);
   g_nl += g_t * 0.5f * s.inv_h;
-  const float g_invh = g_t * (f.nv + s.nl) * 0.5f + g_vdh * s.h2;
+  const float g_invh = g_t * (f.nv + s.nl) * 0.5f + g_vdh * s.h2 +
+                      g_sin2 * (s.sx * s.sx + s.sy * s.sy) * 0.5f * s.inv_h;
   const float g_h2 = g_vdh * s.inv_h + g_invh * -0.5f * s.inv_h * s.inv_h *
                                            s.inv_h * above(s.h2, 1e-6f);
   const float g_vl = 0.5f * g_h2;
   g_nv += g_vl * c.z;
   acc.r += g_a2 * 4.0f * f.r * f.r * f.r + g_kg * (f.r + 1.0f) * 0.25f;
   acc.nv += g_nv;
-  acc.v_cx += g_vl * c.x;
-  acc.v_cy += g_vl * c.y;
+  acc.v_cx += g_vl * c.x + g_s * s.sx;
+  acc.v_cy += g_vl * c.y + g_s * s.sy;
   acc.n_cy += g_nl * c.y;
   acc.nn += g_nl * c.z;
 }
@@ -332,20 +382,26 @@ __host__ __device__ __forceinline__ void lobe_adjoint(const Lobe& g, float4 c,
   acc[6] += gee * c.z;
 }
 
-__host__ __device__ __forceinline__ void lobe_adjoint(const Lobes& g, int k,
-                                                      float4 c,
-                                                      const float genv[3],
-                                                      float e, float cosm1,
-                                                      float acc[7]) {
-  lobe_adjoint(g.at(k), c, genv, e, cosm1, acc);
-}
-
 #ifdef __CUDACC__
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
+}
+
+// One thread's asynchronous copy of 16 (or 4) bytes from device memory to
+// shared memory; the caller commits and waits for cp.async groups.
+__device__ __forceinline__ void copy16(float* s, const float* g) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(s));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(g)
+               : "memory");
+}
+
+__device__ __forceinline__ void copy4(float* s, const float* g) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(s));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(g)
+               : "memory");
 }
 
 // Copy pixel p's lobes into this warp's 7K floats of shared memory.
@@ -365,27 +421,6 @@ __device__ __forceinline__ Lobes stage_lobes(float* s, const float* axis,
   for (int i = lane; i < k_num; i += kWarp) s_lamb[i] = lamb[p * k_num + i];
   __syncwarp();
   return l;
-}
-
-// Reduce lobe k's seven sums over the warp and write them (lane 0).
-__device__ __forceinline__ void write_lobe_grads(const Lobes& g, int k,
-                                                 float acc[7], long long p,
-                                                 int k_num, int lane,
-                                                 float* d_axis, float* d_lamb,
-                                                 float* d_weight) {
-#pragma unroll
-  for (int i = 0; i < 7; ++i) acc[i] = warp_sum(acc[i]);
-  if (lane == 0) {
-    const long long o = p * 3 * k_num + 3 * k;
-    d_weight[o] = acc[0];
-    d_weight[o + 1] = acc[1];
-    d_weight[o + 2] = acc[2];
-    d_lamb[p * k_num + k] = acc[3];
-    const float lam = g.lamb[k];
-    d_axis[o] = lam * acc[4];
-    d_axis[o + 1] = lam * acc[5];
-    d_axis[o + 2] = lam * acc[6];
-  }
 }
 
 #endif  // __CUDACC__

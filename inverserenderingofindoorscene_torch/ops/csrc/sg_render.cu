@@ -1,45 +1,42 @@
-// Fused SG decode + Lambert/GGX shading for training, forward and backward,
-// on Hopper (sm_90a).
+// Fused SG decode + Lambert/GGX shading for training, the backward, on
+// Hopper (sm_90a).  The forward runs on the serving kernel's walk
+// (sg_render_env.cu, `render_sg_fwd_f32`).
 //
-// Replaces the TPU kernels `_fwd_kernel` and `_bwd_kernel`
-// (inverserenderingofindoorscene_tpu/ops/sg_render.py:189-211, launched by
-// `_run_fwd` :240 and `_sg_render_bwd` :271; math `_shade_tile_math`
-// :56-186).  Per pixel the forward evaluates the K-lobe SG mixture on the D
-// hemisphere directions and integrates
+// Replaces the TPU kernel `_bwd_kernel`
+// (inverserenderingofindoorscene_tpu/ops/sg_render.py:197-211, launched by
+// `_sg_render_bwd` :271; math `_shade_tile_math` :56-186).  The forward
+// evaluates, per pixel, the K-lobe SG mixture on the D hemisphere
+// directions and integrates
 //   diffuse_c = albedo_c / pi sum_d ndl_w(d) env_c(d),
-//   specular_c = sum_d spec_w(d) env_c(d)
-// without writing the envmap out.  The backward recomputes the forward and
-// pulls (gd, gs) back to albedo, normal, rough, axis, lamb and weight with
-// the hand-derived adjoint of sg_common.cuh; the view direction gets none.
-// PRECONDITION, as for the TPU kernel: |normal| <= 1 (the shortcut algebra
-// for v.l, |h|^2, n.l and n.h is exact only then).
+//   specular_c = sum_d spec_w(d) env_c(d).
+// The backward recomputes it and pulls (gd, gs) back to albedo, normal,
+// rough, axis, lamb and weight with the hand-derived adjoint of
+// sg_common.cuh; the view direction gets none.  PRECONDITION, as for the
+// TPU kernel: |normal| <= 1 (the shortcut algebra for v.l, |h|^2, n.l and
+// n.h is exact only then).  Its recomputed GGX term takes nom0 as a2 ndh^2
+// + |n x h|^2 (`shade<true>`), not the TPU kernel's cancelling ndh^2 (a2 -
+// 1) + 1, so that f32 keeps the gradient on the right side of the GGX
+// denominator's clamp (sg_common.cuh).
 //
-// What bounds them.  At the training shape (N = 96,000 pixels, K=12,
-// D=128) the forward moves 7K+7 = 91 input floats and 6 output floats a
-// pixel (~37 MB, ~11 us) but does N (8K+45) D ~ 1.73 GFLOP (~26 us at the
-// 67 TFLOP/s f32 rate), so it is bound by operations; the backward does
-// about three times the forward's operations, ~5.2 GFLOP (~78 us at B=5).
-// Every operation is per pixel and per direction; there is no reuse for
-// tensor cores.  That count takes an IEEE divide or square root as one
-// operation, but each is a MUFU seed, a Newton refinement and a branch to a
-// slow path: per pixel and direction the backward runs 6 divides and 2
-// square roots (two `shade` calls, one `shade_adjoint`), 2 exp2f and K
-// expf.  In practice the backward is bound by the instruction issue rate:
-// its SASS issues ~620 instructions per pixel and direction at K=12, 62%
-// of them in the lobe loop (~32 per lobe and direction: the IEEE expf, the
-// mixture, the seven sums, the shared-memory rows), ~240 M warp
+// What bounds it.  At the training shape (N = 96,000 pixels, K=12, D=128)
+// the forward does N (8K+45) D ~ 1.73 GFLOP and the backward about three
+// times that, ~5.2 GFLOP (~78 us at the 67 TFLOP/s f32 rate), against
+// ~74 MB moved.  Every operation is per pixel and per direction; there is
+// no reuse for tensor cores.  That count takes an IEEE divide or square
+// root as one operation, but each is a MUFU seed, a Newton refinement and
+// a branch to a slow path: per pixel and direction the backward runs 6
+// divides and 2 square roots (two `shade` calls, one `shade_adjoint`), 2
+// exp2f and K expf.  In practice it is bound by the instruction issue
+// rate: its SASS issues ~620 instructions per pixel and direction at K=12,
+// 62% of them in the lobe loop (~32 per lobe and direction: the IEEE expf,
+// the mixture, the seven sums, the shared-memory rows), ~240 M warp
 // instructions a launch, ~0.23-0.26 ms at 132 SMs x 4 schedulers and
-// 1.75-1.98 GHz.  It holds 255 registers (a 60-byte spill), so 4 blocks
-// (8 warps) are resident per SM; the launch takes ~0.40 ms on an H100
-// 80GB HBM3 at 700 W, ~60% of the issue rate.
+// 1.75-1.98 GHz (counted before the well-conditioned nom0 below).  It
+// holds 254 registers, no spill, so 4 blocks (8 warps) are resident per
+// SM; the launch takes 0.457 ms on an H100 80GB HBM3 at 700 W
+// (chip_smoke.py phase 3; 0.402 with the TPU kernel's nom0).
 //
-// The forward's design.  One warp per pixel, eight pixels to a block; lane
-// i takes directions i, i+32, ....  The pixel's 7K SG scalars are staged
-// once in shared memory and read as broadcasts; the per-pixel frame
-// (normal, tangent frame, view products, roughness terms) is computed by
-// every lane in registers; the six sums are reduced with warp shuffles.
-//
-// The backward's design (as the TPU kernel, pixels along the lanes).  One
+// The design (as the TPU kernel, pixels along the lanes).  One
 // thread per pixel, 64 pixels to a block, so that no sum crosses lanes and
 // the per-pixel work (the frame, its adjoint, the epilogue) runs once per
 // pixel rather than on 32 lanes.  The block stages the [D, 4] direction
@@ -64,56 +61,10 @@ namespace {
 
 using namespace sgk;
 
-constexpr int kWarpsPerBlock = 8;
 // the backward: pixels (threads) to a block, and its shared-memory row
 // length, one float of padding so that staging writes spread over banks
 constexpr int kBwdThreads = 64;
 constexpr int kBwdRow = kBwdThreads + 1;
-
-__device__ __forceinline__ Frame pixel_frame(const float* normal,
-                                             const float* rough,
-                                             const float* view, long long p,
-                                             int hw) {
-  const long long q = 3 * (p % hw);  // the view vector depends on (row, col)
-  return make_frame(normal[3 * p], normal[3 * p + 1], normal[3 * p + 2],
-                    view[q], view[q + 1], view[q + 2], rough[p]);
-}
-
-__global__ void render_sg_fwd_kernel(
-    const float* __restrict__ albedo, const float* __restrict__ normal,
-    const float* __restrict__ rough, const float* __restrict__ axis,
-    const float* __restrict__ lamb, const float* __restrict__ weight,
-    const float* __restrict__ view, const float4* __restrict__ dirs,
-    float* __restrict__ diffuse, float* __restrict__ specular,
-    long long n_pix, int hw, int k_num, int d_num, float f0) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long p = (long long)blockIdx.x * kWarpsPerBlock + warp;
-  if (p >= n_pix) return;  // whole warps leave; no block barrier follows
-  const Lobes g = stage_lobes(smem + warp * 7 * k_num, axis, lamb, weight, p,
-                              k_num, lane);
-  const Frame f = pixel_frame(normal, rough, view, p, hw);
-  float sum[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int d = lane; d < d_num; d += kWarp) {
-    const float4 c = dirs[d];
-    float env[3];
-    mixture(g, k_num, c, env);
-    const Shade s = shade(f, c, f0);
-#pragma unroll
-    for (int ch = 0; ch < 3; ++ch) {
-      sum[ch] += s.ndl_w * env[ch];
-      sum[3 + ch] += s.spec_w * env[ch];
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 6; ++i) sum[i] = warp_sum(sum[i]);
-  if (lane < 3) {
-    const float sd = lane == 0 ? sum[0] : (lane == 1 ? sum[1] : sum[2]);
-    const float ss = lane == 0 ? sum[3] : (lane == 1 ? sum[4] : sum[5]);
-    diffuse[3 * p + lane] = albedo[3 * p + lane] * (1.0f / kPi) * sd;
-    specular[3 * p + lane] = ss;
-  }
-}
 
 // Stage one block's lobe inputs [pixel][k][i] (i < width) into rows
 // [field0 + i][k][pixel] of kBwdRow floats; the global reads coalesce.
@@ -193,44 +144,15 @@ __global__ void __launch_bounds__(kBwdThreads) render_sg_bwd_kernel(
   store_rows(s_grads, d_weight + p0 * 3 * k_num, n_here, k_num, 3, 4);
 }
 
-int smem_bytes(int k_num) {
-  return (int)sizeof(float) * kWarpsPerBlock * 7 * k_num;
-}
-
 // The backward's direction table, lobe rows and gradient rows.
 int bwd_smem_bytes(int k_num, int d_num) {
   return (int)sizeof(float4) * d_num +
          (int)sizeof(float) * 2 * 7 * k_num * kBwdRow;
 }
 
-unsigned int n_blocks(long long n_pix) {
-  return (unsigned int)((n_pix + kWarpsPerBlock - 1) / kWarpsPerBlock);
-}
-
 }  // namespace
 
 extern "C" {
-
-// Shared-memory bytes a block needs for K lobes.
-int render_sg_smem_bytes(int k_num) { return smem_bytes(k_num); }
-
-// Launch on `stream`; return cudaGetLastError() after the launch.  Pointers
-// are contiguous float32 device arrays: albedo/normal [N, 3], rough [N, 1],
-// axis/weight [N, 3K], lamb [N, K], view [HW, 3] (pixel p uses row p % HW),
-// dirs [D, 4]; out diffuse/specular [N, 3].
-int render_sg_fwd_f32(const float* albedo, const float* normal,
-                      const float* rough, const float* axis, const float* lamb,
-                      const float* weight, const float* view,
-                      const float* dirs, float* diffuse, float* specular,
-                      long long n_pix, int hw, int k_num, int d_num, float f0,
-                      void* stream) {
-  render_sg_fwd_kernel<<<n_blocks(n_pix), kWarpsPerBlock * kWarp,
-                         smem_bytes(k_num), (cudaStream_t)stream>>>(
-      albedo, normal, rough, axis, lamb, weight, view,
-      reinterpret_cast<const float4*>(dirs), diffuse, specular, n_pix, hw,
-      k_num, d_num, f0);
-  return (int)cudaGetLastError();
-}
 
 // Shared-memory bytes a backward block needs for K lobes and D directions
 // (above 48 KB the launch opts in, up to the card's per-block limit).

@@ -72,7 +72,7 @@ __host__ __device__ __forceinline__ PixelGrad render_sg_bwd_pixel(
     for (int j = 0; j < kChunk; ++j) {
       const int d = d0 + j;
       c[j] = d < d_num ? dirs[d] : make_float4(0.f, 0.f, 1.f, 0.f);
-      const Shade s = shade(f, c[j], f0);
+      const Shade s = shade<true>(f, c[j], f0);
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch) {
         genv[j][ch] = gda[ch] * s.ndl_w + in.gs[ch] * s.spec_w;
@@ -108,7 +108,7 @@ __host__ __device__ __forceinline__ PixelGrad render_sg_bwd_pixel(
     // (C) shading adjoint against the rebuilt mixture
 #pragma unroll
     for (int j = 0; j < kChunk; ++j) {
-      const Shade s = shade(f, c[j], f0);
+      const Shade s = shade<true>(f, c[j], f0);
       const float e_d =
           gda[0] * env[j][0] + gda[1] * env[j][1] + gda[2] * env[j][2];
       const float e_s =

@@ -8,6 +8,19 @@
 // into diffuse and specular [3].  Forward only: serving never
 // differentiates.
 //
+// The same walk without the envmap stores is the training forward
+// `render_sg_fwd` (`render_sg_fwd_f32`), which replaces the TPU kernel
+// `_fwd_kernel` launched by `_run_fwd` (ops/sg_render.py:189, :240): one
+// template, sg_render_walk_kernel<kStoreEnv, kExp2>, where render_sg_env
+// is <true, false> (its SASS as before the template, but for register
+// names) and render_sg_fwd <false, true>: with the exponential as exp2f of
+// a sharpness scaled by log2(e) in the lobe records, its lobe loop is 105
+// instructions for 8 lobe-directions (13.1 each, against 17.4 with expf).
+// At the training shape (B=5, 120x160, K=12, D=128) it takes 0.144 ms on
+// an H100 80GB HBM3 at 700 W (chip_smoke.py phase 3), against 0.213 for
+// the earlier forward of one 8-warp block per 8 pixels, whose every lane
+// built the pixel's frame and read each lobe as 7 scalar loads.
+//
 // What bounds it.  At the serving shape (B=1, 120x160 grid, K=12, D=128)
 // each pixel reads 7K+7 = 91 floats (plus its 3-float view vector) and
 // writes 6 + 3D = 390; the envmap is 80% of the ~37 MB moved, ~11 us at
@@ -64,8 +77,9 @@
 // Numerics follow `_shade_tile_math` step for step, including every clamp,
 // through sg_common.cuh.  Build without --use_fast_math: the tolerances
 // against the plain PyTorch version assume IEEE expf/exp2f/sqrtf and
-// division (and 1/sqrtf, not rsqrtf).  The lobe stays expf(lamb (cos - 1)),
-// as the TPU kernel's jnp.exp.
+// division (and 1/sqrtf, not rsqrtf).  In render_sg_env the lobe stays
+// expf(lamb (cos - 1)), as the TPU kernel's jnp.exp; render_sg_fwd's
+// exp2f passes the same tolerances.
 
 #include <climits>
 
@@ -91,18 +105,6 @@ struct WarpSmem {
     return kFrames + kRecord * k_num + 2 * Raw::floats(k_num);
   }
 };
-
-__device__ __forceinline__ void copy16(float* s, const float* g) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(s));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(g)
-               : "memory");
-}
-
-__device__ __forceinline__ void copy4(float* s, const float* g) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(s));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(g)
-               : "memory");
-}
 
 // Start the copy of pixel p's SG inputs into the raw buffer `raw`; one
 // cp.async group a call, empty past the last pixel.  With `vec` (K a
@@ -144,8 +146,10 @@ __device__ __forceinline__ void prefetch_pixel(float* raw, const float* axis,
 
 // Warp w of W = gridDim.x kWarps takes pixels w, w + W, ...; the warps are
 // numbered warp-major, so the warps with one pixel more spread over the
-// SMs.
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM) sg_render_env_kernel(
+// SMs.  kStoreEnv: write the envmap (render_sg_env) or not (render_sg_fwd,
+// which passes no env); kExp2: lobe_exp2's exponential.
+template <bool kStoreEnv, bool kExp2>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM) sg_render_walk_kernel(
     const float* __restrict__ albedo, const float* __restrict__ normal,
     const float* __restrict__ rough, const float* __restrict__ axis,
     const float* __restrict__ lamb, const float* __restrict__ weight,
@@ -179,7 +183,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) sg_render_env_kernel(
     }
     asm volatile("cp.async.wait_group 1;" ::: "memory");  // this pixel's
     __syncwarp();
-    build_records(rec, raw + (j & 1) * raw_n, k_num, lane, kWarp);
+    build_records<kExp2>(rec, raw + (j & 1) * raw_n, k_num, lane, kWarp);
     __syncwarp();
 
     const float* slot = frames + kFrameFloats * (j & (kWarp - 1));
@@ -188,8 +192,9 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) sg_render_env_kernel(
     for (int c0 = 0; c0 < d_num; c0 += kPassDirs) {
       float4 c[kDirsPerLane];
       float mix[kDirsPerLane][3];
-      env_lane_mix(rec, k_num, dirs, d_num, c0, lane, c, mix,
-                   env + (long long)p * (3 * d_num) + 3 * c0);
+      env_lane_mix<kStoreEnv, kExp2>(
+          rec, k_num, dirs, d_num, c0, lane, c, mix,
+          kStoreEnv ? env + (long long)p * (3 * d_num) + 3 * c0 : nullptr);
       env_lane_shade(f, c, mix, f0, sum);
     }
 #pragma unroll
@@ -209,12 +214,49 @@ int smem_bytes(int k_num) {
   return (int)sizeof(float) * kWarps * WarpSmem::floats(k_num);
 }
 
+// Launch the walk on `stream`; return the first CUDA error of the launch.
+template <bool kStoreEnv, bool kExp2>
+int launch_walk(const float* albedo, const float* normal, const float* rough,
+                const float* axis, const float* lamb, const float* weight,
+                const float* view, const float* dirs, float* diffuse,
+                float* specular, float* env, long long n_pix, int hw,
+                int k_num, int d_num, float f0, cudaStream_t stream) {
+  const int smem = smem_bytes(k_num);
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(sg_render_walk_kernel<kStoreEnv, kExp2>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+  }
+  // pixel indices are 32-bit, and a frame batch looks 31 strides past a
+  // warp's pixel
+  if (err == cudaSuccess && n_pix > (INT_MAX >> 1)) {
+    err = cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (n_pix + kWarps - 1) / kWarps;
+  const long long slots = (long long)kBlocksPerSM * sms;
+  const unsigned int grid = (unsigned int)(blocks < slots ? blocks : slots);
+  sg_render_walk_kernel<kStoreEnv, kExp2>
+      <<<grid, kThreads, smem, stream>>>(
+          albedo, normal, rough, axis, lamb, weight, view,
+          reinterpret_cast<const float4*>(dirs), diffuse, specular, env,
+          (int)n_pix, hw, k_num, d_num, f0);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Shared-memory bytes a block needs for K lobes (above 48 KB the launch
-// opts in, up to the card's per-block limit); D does not enter.
+// opts in, up to the card's per-block limit); D does not enter.  The same
+// for both entries.
 int sg_render_env_smem_bytes(int k_num, int d_num) {
   (void)d_num;
   return smem_bytes(k_num);
@@ -230,32 +272,23 @@ int sg_render_env_f32(const float* albedo, const float* normal,
                       const float* dirs, float* diffuse, float* specular,
                       float* env, long long n_pix, int hw, int k_num,
                       int d_num, float f0, void* stream) {
-  const int smem = smem_bytes(k_num);
-  int device = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                 device);
-  }
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(sg_render_env_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
-  }
-  // pixel indices are 32-bit, and a frame batch looks 31 strides past a
-  // warp's pixel
-  if (err == cudaSuccess && n_pix > (INT_MAX >> 1)) {
-    err = cudaErrorInvalidValue;
-  }
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (n_pix + kWarps - 1) / kWarps;
-  const long long slots = (long long)kBlocksPerSM * sms;
-  const unsigned int grid = (unsigned int)(blocks < slots ? blocks : slots);
-  sg_render_env_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      albedo, normal, rough, axis, lamb, weight, view,
-      reinterpret_cast<const float4*>(dirs), diffuse, specular, env,
-      (int)n_pix, hw, k_num, d_num, f0);
-  return (int)cudaGetLastError();
+  return launch_walk<true, false>(albedo, normal, rough, axis, lamb, weight,
+                                  view, dirs, diffuse, specular, env, n_pix,
+                                  hw, k_num, d_num, f0, (cudaStream_t)stream);
+}
+
+// The same walk without the envmap, with lobe_exp2's exponential:
+// diffuse/specular [N,3] out.
+int render_sg_fwd_f32(const float* albedo, const float* normal,
+                      const float* rough, const float* axis, const float* lamb,
+                      const float* weight, const float* view,
+                      const float* dirs, float* diffuse, float* specular,
+                      long long n_pix, int hw, int k_num, int d_num, float f0,
+                      void* stream) {
+  return launch_walk<false, true>(albedo, normal, rough, axis, lamb, weight,
+                                  view, dirs, diffuse, specular, nullptr,
+                                  n_pix, hw, k_num, d_num, f0,
+                                  (cudaStream_t)stream);
 }
 
 }  // extern "C"

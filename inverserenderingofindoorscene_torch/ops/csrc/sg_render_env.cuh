@@ -1,8 +1,9 @@
-// The serving kernel's per-pixel and per-lane arithmetic: the raw layout
+// The SG shading walk's per-pixel and per-lane arithmetic: the raw layout
 // of a pixel's SG inputs, its lobe records, the frame prologue and one
-// lane's pass over its directions.  `sg_render_env_kernel`
-// (sg_render_env.cu) runs them on one warp per pixel, each warp walking
-// its own pixels; the CPU check (tests/test_torch_sg_render_env_host.py)
+// lane's pass over its directions.  `sg_render_walk_kernel`
+// (sg_render_env.cu; `render_sg_env` stores the envmap, `render_sg_fwd`
+// does not) runs them on one warp per pixel, each warp walking its own
+// pixels; the CPU check (tests/test_torch_sg_render_env_host.py)
 // builds this header with g++ and runs the same functions warp by warp and
 // lane by lane, so the pixel walk, the frame batches, the lane split, the
 // tail of the directions and the record layout are checked before the
@@ -20,8 +21,6 @@ constexpr int kPassDirs = kWarp * kDirsPerLane;  // directions a warp pass
 constexpr int kRecord = 8;  // floats a lobe record: ax ay az lamb | wr wg wb -
 // a pixel's frame slot: the 8 scalars `shade` reads, then albedo / pi, pad
 constexpr int kFrameFloats = 12;
-
-__host__ __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
 
 // A pixel's raw SG inputs as they arrive from device memory, each run
 // starting on 16 bytes: axis [3K] | lamb [K] | weight [3K].
@@ -43,8 +42,10 @@ __host__ __device__ __forceinline__ int warp_pixel(int warp_id, int j,
 }
 
 // The lobe records of one pixel from its raw inputs: record k = (axis_k,
-// lamb_k | weight_k, 0).  Threads first, first + step, ... take lobes
-// first, first + step, ...
+// lamb_k | weight_k, 0), with lamb_k log2(e) in place of lamb_k for
+// kExp2's exponential (sg_common.cuh `lobe_exp2`).  Threads first, first +
+// step, ... take lobes first, first + step, ...
+template <bool kExp2>
 __host__ __device__ __forceinline__ void build_records(float* rec,
                                                        const float* raw,
                                                        int k_num, int first,
@@ -54,7 +55,8 @@ __host__ __device__ __forceinline__ void build_records(float* rec,
   const float* wt = raw + Raw::weight(k_num);
   for (int k = first; k < k_num; k += step) {
     float4* r = reinterpret_cast<float4*>(rec + kRecord * k);
-    r[0] = make_float4(ax[3 * k], ax[3 * k + 1], ax[3 * k + 2], lm[k]);
+    const float lamb = kExp2 ? lm[k] * kLog2e : lm[k];
+    r[0] = make_float4(ax[3 * k], ax[3 * k + 1], ax[3 * k + 2], lamb);
     r[1] = make_float4(wt[3 * k], wt[3 * k + 1], wt[3 * k + 2], 0.0f);
   }
 }
@@ -103,9 +105,12 @@ __host__ __device__ __forceinline__ Frame load_frame(const float* in) {
 // first: lobes outside, the lane's directions inside, so each record (two
 // 16-byte loads) serves all of them.  Directions past d_num (the tail) run
 // on a dummy direction of zero solid angle.  Keeps the directions in c and
-// their mixture in env, and writes the mixture at d to env_pass[3 (d - c0)
-// + ch] for d < d_num (the kernel passes the pixel's envmap in device
-// memory: the warp's three stores of one j fill 384 contiguous bytes).
+// their mixture in env and, with kStoreEnv, writes the mixture at d to
+// env_pass[3 (d - c0) + ch] for d < d_num (the kernel passes the pixel's
+// envmap in device memory: the warp's three stores of one j fill 384
+// contiguous bytes); without it env_pass is not touched.  kExp2 takes the
+// records of build_records<true> and lobe_exp2's exponential.
+template <bool kStoreEnv, bool kExp2>
 __host__ __device__ __forceinline__ void env_lane_mix(
     const float* rec, int k_num, const float4* dirs, int d_num, int c0,
     int lane, float4 c[kDirsPerLane], float env[kDirsPerLane][3],
@@ -124,12 +129,14 @@ __host__ __device__ __forceinline__ void env_lane_mix(
 #pragma unroll
     for (int j = 0; j < kDirsPerLane; ++j) {
       float cosm1;
-      const float e = lobe(g, c[j], &cosm1);
+      const float e = kExp2 ? lobe_exp2(g, c[j], g.lamb, &cosm1)
+                            : lobe(g, c[j], &cosm1);
       env[j][0] += g.wr * e;
       env[j][1] += g.wg * e;
       env[j][2] += g.wb * e;
     }
   }
+  if (!kStoreEnv) return;
 #pragma unroll
   for (int j = 0; j < kDirsPerLane; ++j) {
     const int i = lane + kWarp * j;

@@ -4,7 +4,9 @@ versions and the autograd Functions of the training pair.
 Counterparts of the JAX package's ``ops/sg_render.py``, with its NHWC API:
 
 * ``render_sg_env`` (serving, forward only; ``csrc/sg_render_env.cu``);
-* ``render_sg`` (decode + shading, differentiable; ``csrc/sg_render.cu``);
+* ``render_sg`` (decode + shading, differentiable; its forward is the
+  serving kernel's walk without the envmap stores, ``csrc/sg_render_env.cu``,
+  its backward ``csrc/sg_render.cu``);
 * ``sg_envmap`` (decode to the per-pixel envmap, differentiable;
   ``csrc/sg_envmap.cu``).
 
@@ -43,22 +45,21 @@ from inverserenderingofindoorscene_torch.ops import build
 # launches opt in)
 _SMEM_LIMIT = 48 * 1024
 _SMEM_OPTIN_LIMIT = 227 * 1024
-# the envmap backward keeps at most four directions per lane in registers;
-# the render backward, which walks the directions in chunks, keeps the same
-# bound as its API
+# directions: the render backward's bound (its API's; it walks the
+# directions in chunks), and the shading walk's
 _MAX_BWD_DIRS = 128
+_MAX_WALK_DIRS = 1024
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LL = ctypes.c_longlong
 _SIGNATURES = {
     "sg_render_env": {
         "sg_render_env_f32": [_P] * 11 + [_LL, _I, _I, _I, _F, _P],
+        "render_sg_fwd_f32": [_P] * 10 + [_LL, _I, _I, _I, _F, _P],
         "sg_render_env_smem_bytes": [_I, _I],
     },
     "sg_render": {
-        "render_sg_fwd_f32": [_P] * 10 + [_LL, _I, _I, _I, _F, _P],
         "render_sg_bwd_f32": [_P] * 16 + [_LL, _I, _I, _I, _F, _P],
-        "render_sg_smem_bytes": [_I],
         "render_sg_bwd_smem_bytes": [_I, _I],
     },
     "sg_envmap": {
@@ -128,6 +129,30 @@ def _shading_inputs(fn, albedo, normal, rough, axis, lamb, weight):
     return b, h, w, k
 
 
+def _walk_inputs(fn, albedo, normal, rough, axis, lamb, weight, fov_deg,
+                 env_height, env_width):
+    """Check a launch of the shading walk (``render_sg_env``,
+    ``render_sg_fwd``); returns the library, (b, h, w, k, d) and the view
+    and direction tables."""
+    b, h, w, k = _shading_inputs(fn, albedo, normal, rough, axis, lamb,
+                                 weight)
+    d = env_height * env_width
+    if d > _MAX_WALK_DIRS:
+        raise ValueError(f"{fn}: {d} directions > {_MAX_WALK_DIRS}")
+    lib = _lib("sg_render_env")
+    _check_smem(fn, k, lib.sg_render_env_smem_bytes(k, d), _SMEM_OPTIN_LIMIT)
+    dev = albedo.device
+    tables = (_view(h, w, float(fov_deg), dev),
+              _dir_consts(env_height, env_width, dev))
+    return lib, (b, h, w, k, d), tables
+
+
+def _check_smem(fn, k, smem, limit):
+    if smem > limit:
+        raise ValueError(f"{fn}: K={k} needs {smem} B of shared memory a "
+                         f"block, more than {limit}")
+
+
 # ---------------------------------------------------------------------------
 # render_sg_env: serving, forward only
 # ---------------------------------------------------------------------------
@@ -163,15 +188,9 @@ def render_sg_env(albedo, normal, rough, axis, lamb, weight, fov_deg=57.0,
     if not build.on_card("render_sg_env", albedo):
         return render_sg_env_plain(albedo, normal, rough, axis, lamb, weight,
                                    fov_deg, f0, env_height, env_width)
-    b, h, w, k = _shading_inputs("render_sg_env", albedo, normal, rough,
-                                 axis, lamb, weight)
-    d = env_height * env_width
-    if d > 1024:
-        raise ValueError(f"render_sg_env: {d} directions > 1024")
-    lib = _lib("sg_render_env")
-    _check_smem("render_sg_env", k, lib.sg_render_env_smem_bytes(k, d),
-                _SMEM_OPTIN_LIMIT)
-
+    lib, (b, h, w, k, d), tables = _walk_inputs(
+        "render_sg_env", albedo, normal, rough, axis, lamb, weight, fov_deg,
+        env_height, env_width)
     n = b * h * w
     dev = albedo.device
     diffuse = torch.empty((b, h, w, 3), dtype=torch.float32, device=dev)
@@ -179,13 +198,11 @@ def render_sg_env(albedo, normal, rough, axis, lamb, weight, fov_deg=57.0,
     env = torch.empty((b, h, w, d, 3), dtype=torch.float32, device=dev)
     if n == 0:
         return diffuse, specular, env
-    ptrs = [x.data_ptr() for x in (
-        albedo, normal, rough, axis, lamb, weight,
-        _view(h, w, float(fov_deg), dev), _dir_consts(env_height, env_width,
-                                                      dev),
-        diffuse, specular, env)]
+    ptrs = [x.data_ptr()
+            for x in (albedo, normal, rough, axis, lamb, weight, *tables)]
     build.raise_on("sg_render_env", lib.sg_render_env_f32(
-        *ptrs, n, h * w, k, d, float(f0), build.stream(dev)))
+        *ptrs, diffuse.data_ptr(), specular.data_ptr(),
+        env.data_ptr(), n, h * w, k, d, float(f0), build.stream(dev)))
     render_sg_env.launches += 1
     return diffuse, specular, env
 
@@ -228,10 +245,7 @@ def _envmap_inputs(fn, axis, lamb, weight):
         "lamb": (lamb, (b, h, w, k)),
         "weight": (weight, (b, h, w, k, 3)),
     })
-    lib = _lib("sg_envmap")
-    if lib.sg_envmap_smem_bytes(k) > _SMEM_LIMIT:
-        raise ValueError(f"{fn}: K={k} exceeds shared memory")
-    return lib, b * h * w, k
+    return _lib("sg_envmap"), b * h * w, k
 
 
 def sg_envmap_fwd(axis, lamb, weight, env_height=8, env_width=16):
@@ -240,6 +254,7 @@ def sg_envmap_fwd(axis, lamb, weight, env_height=8, env_width=16):
     if not build.on_card("sg_envmap_fwd", axis):
         return sg_envmap_plain(axis, lamb, weight, env_height, env_width)
     lib, n, k = _envmap_inputs("sg_envmap_fwd", axis, lamb, weight)
+    _check_smem("sg_envmap_fwd", k, lib.sg_envmap_smem_bytes(k), _SMEM_LIMIT)
     d = env_height * env_width
     dev = axis.device
     env = torch.empty(lamb.shape[:3] + (d, 3), dtype=torch.float32,
@@ -256,16 +271,14 @@ def sg_envmap_fwd(axis, lamb, weight, env_height=8, env_width=16):
 
 
 def sg_envmap_bwd(axis, lamb, weight, g_env, env_height=8, env_width=16):
-    """Launch the backward kernel (CUDA) or run
-    :func:`sg_envmap_bwd_plain` (CPU).  Returns (d_axis, d_lamb,
-    d_weight)."""
+    """Launch the backward kernel (CUDA; any D, K <= 768, else the launch
+    raises) or run :func:`sg_envmap_bwd_plain` (CPU).  Returns (d_axis,
+    d_lamb, d_weight)."""
     if not build.on_card("sg_envmap_bwd", axis):
         return sg_envmap_bwd_plain(axis, lamb, weight, g_env, env_height,
                                    env_width)
     lib, n, k = _envmap_inputs("sg_envmap_bwd", axis, lamb, weight)
     d = env_height * env_width
-    if d > _MAX_BWD_DIRS:
-        raise ValueError(f"sg_envmap_bwd: {d} directions > {_MAX_BWD_DIRS}")
     _check("sg_envmap_bwd", axis.device,
            {"g_env": (g_env, lamb.shape[:3] + (d, 3))})
     d_axis, d_lamb, d_weight = (torch.empty_like(x)
@@ -307,8 +320,8 @@ def sg_envmap(axis, lamb, weight, env_height=8, env_width=16):
     axis [B,H,W,K,3], lamb [B,H,W,K] (physical), weight [B,H,W,K,3]
     (physical).  Returns envmap [B,H,W,D,3] with the semantics of
     ``core.sg.sg_to_envmap``; the forward and backward are the kernels of
-    ``csrc/sg_envmap.cu`` on CUDA tensors (D <= 128), their plain versions
-    on CPU tensors."""
+    ``csrc/sg_envmap.cu`` on CUDA tensors, their plain versions on CPU
+    tensors."""
     axis, lamb, weight = (x.contiguous() for x in (axis, lamb, weight))
     return _SGEnvmap.apply(axis, lamb, weight, int(env_height),
                            int(env_width))
@@ -374,8 +387,9 @@ def _frame(normal, rough, v):
 
 
 def _shade(f, c, f0):
-    """``shade`` of csrc/sg_common.cuh: per-pixel columns [N, 1] against
-    direction rows c [4, D] -> [N, D] terms."""
+    """``shade<true>`` of csrc/sg_common.cuh, the backward's, with nom0 as
+    a2 ndh^2 + |n x h|^2 where ``s.cross``: per-pixel columns [N, 1]
+    against direction rows c [4, D] -> [N, D] terms."""
     col = {k: v[:, None] for k, v in vars(f).items()}
     lx, ly, lz, wq = c
     s = SimpleNamespace()
@@ -389,7 +403,12 @@ def _shade(f, c, f0):
     s.t = (col["nv"] + s.nl) * 0.5 * s.inv_h
     s.ndh = torch.clamp(s.t, 0.0, 1.0)
     s.ndl = torch.clamp(s.nl, 0.0, 1.0)
-    s.nom0 = s.ndh * s.ndh * (col["a2"] - 1.0) + 1.0
+    s.cross = ((col["s"] >= 1e-6) & (s.h2 >= 1e-6) & (s.t > 0.0)
+               & (s.t < 1.0))
+    s.sx, s.sy = lx + col["v_cx"], ly + col["v_cy"]
+    sin2 = (s.sx * s.sx + s.sy * s.sy) * 0.25 * s.inv_h * s.inv_h
+    s.nom0 = torch.where(s.cross, col["a2"] * s.ndh * s.ndh + sin2,
+                         s.ndh * s.ndh * (col["a2"] - 1.0) + 1.0)
     s.nom2 = s.ndl * (1.0 - col["kg"]) + col["kg"]
     s.nomr = 4.0 * math.pi * s.nom0 * s.nom0 * col["nom1"] * s.nom2
     s.nom = torch.clamp(s.nomr, 1e-6, 4.0 * math.pi)
@@ -418,7 +437,10 @@ def _shade_adjoint(f, col, s, c, f0, e_d, e_s):
     g_frac0 = g_frac * col["a2"]
     g_vdh = (g_frac0 * (1.0 - f0) * s.ex2 * math.log(2.0)
              * (-2.0 * 5.55472 * s.vdh - 6.98316))
-    g_ndh = g_nom0 * 2.0 * s.ndh * (col["a2"] - 1.0)
+    g_ndh = g_nom0 * 2.0 * s.ndh * torch.where(s.cross, col["a2"],
+                                               col["a2"] - 1.0)
+    g_sin2 = g_nom0 * s.cross.to(s.t.dtype)
+    g_s = g_sin2 * 0.5 * s.inv_h * s.inv_h
     g_ndl = g_ndl + g_nom2 * (1.0 - col["kg"])
     g_kg = g_nom2 * (1.0 - s.ndl) + g_nom1 * (1.0 - col["ndv"])
     g_nl = g_ndl * _inside(s.nl, 0.0, 1.0)
@@ -426,7 +448,8 @@ def _shade_adjoint(f, col, s, c, f0, e_d, e_s):
     g_nv = (g_t * 0.5 * s.inv_h
             + g_nom1 * (1.0 - col["kg"]) * _inside(col["nv"], 0.0, 1.0))
     g_nl = g_nl + g_t * 0.5 * s.inv_h
-    g_invh = g_t * (col["nv"] + s.nl) * 0.5 + g_vdh * s.h2
+    g_invh = (g_t * (col["nv"] + s.nl) * 0.5 + g_vdh * s.h2
+              + g_sin2 * (s.sx * s.sx + s.sy * s.sy) * 0.5 * s.inv_h)
     g_h2 = (g_vdh * s.inv_h
             + g_invh * -0.5 * s.inv_h * s.inv_h * s.inv_h
             * _above(s.h2, 1e-6))
@@ -436,8 +459,8 @@ def _shade_adjoint(f, col, s, c, f0, e_d, e_s):
         r=torch.sum(g_a2 * 4.0 * col["r"] ** 3
                     + g_kg * (col["r"] + 1.0) * 0.25, dim=-1),
         nv=torch.sum(g_nv, dim=-1),
-        v_cx=torch.sum(g_vl * lx, dim=-1),
-        v_cy=torch.sum(g_vl * ly, dim=-1),
+        v_cx=torch.sum(g_vl * lx + g_s * s.sx, dim=-1),
+        v_cy=torch.sum(g_vl * ly + g_s * s.sy, dim=-1),
         n_cy=torch.sum(g_nl * ly, dim=-1),
         nn=torch.sum(g_nl * lz, dim=-1),
     )
@@ -493,7 +516,9 @@ def render_sg_bwd_plain(albedo, normal, rough, axis, lamb, weight,
                         env_height=8, env_width=16):
     """The backward kernel's function in plain PyTorch: the explicit
     adjoint of the TPU kernel's shading math (``_shade_tile_math``, with its
-    |normal| <= 1 shortcut algebra), formula for formula as
+    |normal| <= 1 shortcut algebra; nom0 as a2 ndh^2 + |n x h|^2, which
+    keeps f32 on the right side of the GGX clamp, csrc/sg_common.cuh),
+    formula for formula as
     ``render_sg_bwd_pixel`` (csrc/sg_render_bwd.cuh) runs it, pass for
     pass: (A) radiance adjoint, (B) lobes, (C) shading adjoint, then the
     per-pixel chain.  The kernel runs the three passes per chunk of eight
@@ -536,45 +561,27 @@ def render_sg_bwd_plain(albedo, normal, rough, axis, lamb, weight,
             d_lamb.reshape(lamb.shape), d_weight.reshape(weight.shape))
 
 
-def _render_launch_inputs(fn, albedo, normal, rough, axis, lamb, weight,
-                          fov_deg, env_height, env_width):
-    b, h, w, k = _shading_inputs(fn, albedo, normal, rough, axis, lamb,
-                                 weight)
-    lib = _lib("sg_render")
-    dev = albedo.device
-    consts = (_view(h, w, float(fov_deg), dev),
-              _dir_consts(env_height, env_width, dev))
-    return lib, (b, h, w, k), consts
-
-
-def _check_smem(fn, k, smem, limit):
-    if smem > limit:
-        raise ValueError(f"{fn}: K={k} needs {smem} B of shared memory a "
-                         f"block, more than {limit}")
-
-
 def render_sg_fwd(albedo, normal, rough, axis, lamb, weight, fov_deg=57.0,
                   f0=0.05, env_height=8, env_width=16):
-    """Launch the forward kernel (CUDA) or run :func:`render_sg_plain`
-    (CPU).  Not differentiable; :func:`render_sg` is."""
+    """Launch the forward kernel, the serving walk without the envmap
+    (CUDA), or run :func:`render_sg_plain` (CPU).  Not differentiable;
+    :func:`render_sg` is."""
     if not build.on_card("render_sg_fwd", albedo):
         return render_sg_plain(albedo, normal, rough, axis, lamb, weight,
                                fov_deg, f0, env_height, env_width)
-    lib, (b, h, w, k), (view, dirs) = _render_launch_inputs(
+    lib, (b, h, w, k, d), tables = _walk_inputs(
         "render_sg_fwd", albedo, normal, rough, axis, lamb, weight, fov_deg,
         env_height, env_width)
-    _check_smem("render_sg_fwd", k, lib.render_sg_smem_bytes(k), _SMEM_LIMIT)
     diffuse = torch.empty_like(albedo)
     specular = torch.empty_like(albedo)
     n = b * h * w
     if n == 0:
         return diffuse, specular
+    ptrs = [x.data_ptr()
+            for x in (albedo, normal, rough, axis, lamb, weight, *tables)]
     build.raise_on("render_sg_fwd", lib.render_sg_fwd_f32(
-        albedo.data_ptr(), normal.data_ptr(), rough.data_ptr(),
-        axis.data_ptr(), lamb.data_ptr(), weight.data_ptr(),
-        view.data_ptr(), dirs.data_ptr(), diffuse.data_ptr(),
-        specular.data_ptr(), n, h * w, k, env_height * env_width, float(f0),
-        build.stream(albedo.device),
+        *ptrs, diffuse.data_ptr(), specular.data_ptr(), n, h * w, k, d,
+        float(f0), build.stream(albedo.device),
     ))
     render_sg_fwd.launches += 1
     return diffuse, specular
@@ -589,9 +596,12 @@ def render_sg_bwd(albedo, normal, rough, axis, lamb, weight, grad_diffuse,
         return render_sg_bwd_plain(albedo, normal, rough, axis, lamb, weight,
                                    grad_diffuse, grad_specular, fov_deg, f0,
                                    env_height, env_width)
-    lib, (b, h, w, k), (view, dirs) = _render_launch_inputs(
-        "render_sg_bwd", albedo, normal, rough, axis, lamb, weight, fov_deg,
-        env_height, env_width)
+    b, h, w, k = _shading_inputs("render_sg_bwd", albedo, normal, rough,
+                                 axis, lamb, weight)
+    lib = _lib("sg_render")
+    dev = albedo.device
+    view = _view(h, w, float(fov_deg), dev)
+    dirs = _dir_consts(env_height, env_width, dev)
     d = env_height * env_width
     if d > _MAX_BWD_DIRS:
         raise ValueError(f"render_sg_bwd: {d} directions > {_MAX_BWD_DIRS}")
@@ -645,8 +655,9 @@ def render_sg(albedo, normal, rough, axis, lamb, weight, fov_deg=57.0,
     [B,H,W,K,3], lamb [B,H,W,K] (physical), weight [B,H,W,K,3]
     (physical).  Returns (diffuse, specular) [B,H,W,3].  Gradients reach
     all six inputs; the view direction gets none.  On CUDA tensors the
-    forward and backward are the kernels of ``csrc/sg_render.cu`` (D <=
-    128), on CPU tensors the plain forward and the plain adjoint.
+    forward is the walk of ``csrc/sg_render_env.cu`` and the backward the
+    kernel of ``csrc/sg_render.cu`` (D <= 128), on CPU tensors the plain
+    forward and the plain adjoint.
 
     PRECONDITION: |normal| <= 1 per pixel, as for the JAX kernel (pooled
     unit normals only shrink); the backward's shortcut algebra assumes it.

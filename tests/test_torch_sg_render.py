@@ -232,13 +232,17 @@ def test_plain_adjoints_match_autograd_and_jax_vjp(op):
 
 
 def test_render_sg_bwd_f32_conditioning():
-    """Why chip_smoke.py holds render_sg's backward kernel by the relative
-    L2 distance of each gradient: at full width (120x160, K=12) the f32
-    explicit adjoint, the shortcut algebra's own, is ~3e-3 (normal) and
-    ~1e-3 (rough) from its float64 value, with single elements past the
-    kernel tests' elementwise rule, while the lobe and albedo gradients
-    stay within 2e-4.  chip_smoke.py's tolerances (GRAD_REL_L2) are at
-    least twice these."""
+    """The f32 explicit adjoint of render_sg's backward at full width
+    (120x160, K=12) against its float64 value.  With the TPU kernels'
+    nom0 = ndh^2 (a2 - 1) + 1 it was ~3e-3 (normal) and ~1e-3 (rough)
+    relative L2 away, with single elements past the kernel tests'
+    elementwise rule: the formula cancels near ndh = 1, and where the GGX
+    denominator sits at its clamp f32 flips the gradient's gate.  With
+    nom0 = a2 ndh^2 + |n x h|^2 (csrc/sg_common.cuh `shade<true>`) it is
+    ~1e-4 and ~6e-6, every element within that rule.  chip_smoke.py holds
+    the kernel by the relative L2 distance of each gradient (GRAD_REL_L2),
+    as its other reference, torch.autograd of the f32 plain forward, has
+    the cancelling formula."""
     args = make_inputs(h=120, w=160, seed=5)
     rng = np.random.RandomState(8)
     cot = [rng.randn(1, 120, 160, 3) for _ in range(2)]
@@ -253,10 +257,10 @@ def test_render_sg_bwd_f32_conditioning():
     for nm, a, b in zip(GRAD_NAMES, g32, g64):
         dist[nm] = float(torch.linalg.vector_norm(a.double() - b)
                          / torch.linalg.vector_norm(b))
-    assert dist["normal"] < 5e-3 and dist["rough"] < 5e-3, dist
+    assert dist["normal"] < 5e-4 and dist["rough"] < 5e-4, dist
     assert max(dist[k] for k in ("albedo", "axis", "lamb", "weight")) < 5e-4
     n32, n64 = g32[1].double(), g64[1]
-    assert float((n32 - n64).abs().max() / n64.abs().max()) > 2e-3
+    assert float((n32 - n64).abs().max() / n64.abs().max()) < 2e-3
 
 
 @pytest.mark.parametrize("fn", ["render_sg_fwd", "render_sg_bwd",

@@ -1,6 +1,6 @@
-"""The serving kernel's lane arithmetic on the CPU.
+"""The shading walk's lane arithmetic on the CPU.
 
-``sg_render_env_kernel`` (csrc/sg_render_env.cu) runs one warp per pixel,
+``sg_render_walk_kernel`` (csrc/sg_render_env.cu) runs one warp per pixel,
 each warp walking its own pixels (``warp_pixel``): every 32 pixels lane
 l computes the frame of the warp's l-th next pixel (``frame_slot``), the
 lanes turn a pixel's arrived inputs into 8-float lobe records
@@ -8,6 +8,9 @@ lanes turn a pixel's arrived inputs into 8-float lobe records
 directions of a 128-direction pass (``env_lane_mix``) and shades them
 (``env_lane_shade``), and a shuffle reduction sums the lanes.  All of that
 but the copies, the shuffles and the stores is csrc/sg_render_env.cuh.
+The serving kernel ``render_sg_env`` is the walk that stores the envmap
+with ``expf``; the training forward ``render_sg_fwd`` is the walk without
+the stores, with ``exp2f`` (``lobe_exp2``).
 Here g++ builds the header into a small library that runs the same
 functions warp by warp and lane by lane, on a few warps so that the frame
 batches roll over, with the butterfly written out in the same order,
@@ -15,7 +18,12 @@ bound with ctypes.  It is held
 against the plain version ``render_sg_env_plain`` and the Pallas
 ``render_sg_env`` (interpret mode) on the same numpy inputs, at the
 tolerances of tests/test_torch_sg_render.py::test_render_sg_env_matches_jax:
-diffuse atol 2e-5, specular atol 5e-4, envmap rtol 2e-5 / atol 1e-5.
+diffuse atol 2e-5, specular atol 5e-4, envmap rtol 2e-5 / atol 1e-5.  The
+walk without the stores is held against ``render_sg_plain`` and the Pallas
+``render_sg`` (the TPU kernel it replaces) at the same diffuse and
+specular tolerances, gives the diffuse and specular of the storing walk
+with the same exponential bit for bit (that walk is built here only for
+the comparison), and leaves the envmap buffer untouched.
 """
 
 import ctypes
@@ -30,8 +38,10 @@ from inverserenderingofindoorscene_torch.ops import sg_render
 from test_torch_sg_render import assert_outputs_close, make_inputs
 from test_torch_sg_render_host import build_host
 
-# the kernel's block over tiles of kEnvPixels pixels, its warps and lanes
-# one after another, with the kernel's C signature less the stream
+# the kernel's warps and lanes one after another, with the kernel's C
+# signature less the stream, plus the number of warps and the template's
+# two flags (the card builds <true, false> and <false, true>; the walk
+# without the stores always takes exp2f)
 HOST_LOOP = r"""
 #include <algorithm>
 #include <vector>
@@ -40,7 +50,8 @@ HOST_LOOP = r"""
 
 using namespace sgk;
 
-extern "C" int render_sg_env_host(
+template <bool kStoreEnv, bool kExp2>
+void walk(
     const float* albedo, const float* normal, const float* rough,
     const float* axis, const float* lamb, const float* weight,
     const float* view, const float* dirs, float* diffuse, float* specular,
@@ -50,11 +61,9 @@ extern "C" int render_sg_env_host(
   std::vector<float4> raw4(Raw::floats(k_num) / 4);
   std::vector<float4> rec4(k_num * kRecord / 4);
   std::vector<float4> frames4(kWarp * kFrameFloats / 4);
-  std::vector<float4> pass4(3 * kPassDirs / 4);
   float* raw = reinterpret_cast<float*>(raw4.data());
   float* rec = reinterpret_cast<float*>(rec4.data());
   float* frames = reinterpret_cast<float*>(frames4.data());
-  float* pass = reinterpret_cast<float*>(pass4.data());
   const float4* d4 = reinterpret_cast<const float4*>(dirs);
   for (int w = 0; w < n_warps; ++w) {
     for (int j = 0, p = w; p < n_pix; ++j, p += n_warps) {
@@ -73,7 +82,7 @@ extern "C" int render_sg_env_host(
       std::copy(weight + p * 3 * k_num, weight + (p + 1) * 3 * k_num,
                 raw + Raw::weight(k_num));
       for (int lane = 0; lane < kWarp; ++lane) {
-        build_records(rec, raw, k_num, lane, kWarp);
+        build_records<kExp2>(rec, raw, k_num, lane, kWarp);
       }
       const float* slot = frames + kFrameFloats * (j % kWarp);
       const Frame f = load_frame(slot);
@@ -82,11 +91,12 @@ extern "C" int render_sg_env_host(
         for (int lane = 0; lane < kWarp; ++lane) {
           float4 c[kDirsPerLane];
           float mix[kDirsPerLane][3];
-          env_lane_mix(rec, k_num, d4, d_num, c0, lane, c, mix, pass);
+          // the pixel's envmap, as the storing kernel passes it; the walk
+          // without the stores must leave it as it is
+          env_lane_mix<kStoreEnv, kExp2>(rec, k_num, d4, d_num, c0, lane, c,
+                                         mix, env + p * 3 * d_num + 3 * c0);
           env_lane_shade(f, c, mix, f0, sum[lane]);
         }
-        const int n = 3 * std::min(kPassDirs, d_num - c0);
-        for (int i = 0; i < n; ++i) env[p * 3 * d_num + 3 * c0 + i] = pass[i];
       }
       // the xor butterfly, lane l adding lane l ^ o: warp_sum's sums, and
       // bit for bit the reduce-scatter's
@@ -103,6 +113,19 @@ extern "C" int render_sg_env_host(
       }
     }
   }
+}
+
+extern "C" int render_sg_env_host(
+    const float* albedo, const float* normal, const float* rough,
+    const float* axis, const float* lamb, const float* weight,
+    const float* view, const float* dirs, float* diffuse, float* specular,
+    float* env, long long n_pix, int hw, int k_num, int d_num, float f0,
+    int n_warps, int store_env, int use_exp2) {
+  // render_sg_env, the same storing walk with exp2f, and render_sg_fwd
+  auto fn = store_env ? (use_exp2 ? walk<true, true> : walk<true, false>)
+                      : walk<false, true>;
+  fn(albedo, normal, rough, axis, lamb, weight, view, dirs, diffuse, specular,
+     env, n_pix, hw, k_num, d_num, f0, n_warps);
   return 0;
 }
 """
@@ -126,12 +149,13 @@ def render_sg_env_host(tmp_path_factory):
     p, i = ctypes.c_void_p, ctypes.c_int
     return build_host(tmp_path_factory, "render_sg_env_host", HOST_LOOP,
                       [p] * 11 + [ctypes.c_longlong, i, i, i, ctypes.c_float,
-                                  i])
+                                  i, i, i])
 
 
-def host_outputs(fn, args, env_hw, n_warps):
+def host_outputs(fn, args, env_hw, n_warps, store_env=True, exp2=False):
     """diffuse, specular, env from the g++ build, on the kernel's
-    constants, with the pixels walked by ``n_warps`` warps."""
+    constants, with the pixels walked by ``n_warps`` warps; env starts as
+    NaN.  ``exp2`` applies to the storing walk; the other takes exp2f."""
     b, h, w = args[0].shape[:3]
     k = args[4].shape[-1]
     d = env_hw[0] * env_hw[1]
@@ -143,7 +167,7 @@ def host_outputs(fn, args, env_hw, n_warps):
             np.full((b, h, w, 3), np.nan, np.float32),
             np.full((b, h, w, d, 3), np.nan, np.float32)]
     err = fn(*(x.ctypes.data for x in ins), *(o.ctypes.data for o in outs),
-             b * h * w, h * w, k, d, F0, n_warps)
+             b * h * w, h * w, k, d, F0, n_warps, store_env, exp2)
     assert err == 0
     return outs
 
@@ -165,3 +189,30 @@ def test_render_sg_env_lanes_match(render_sg_env_host, case, reference):
             *map(jnp.asarray, args), fov_deg=FOV, f0=F0, env_height=eh,
             env_width=ew, interpret=True)
     assert_outputs_close(got, want)
+
+
+@pytest.mark.parametrize("reference", ["plain", "pallas"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_render_sg_fwd_walk_matches(render_sg_env_host, case, reference):
+    """The walk without the envmap stores (``render_sg_fwd``)."""
+    b, h, w, k, eh, ew, n_warps = CASES[case]
+    args = make_inputs(b=b, h=h, w=w, k=k, seed=12)
+    d, s, env = host_outputs(render_sg_env_host, args, (eh, ew), n_warps,
+                             store_env=False)
+    assert np.isnan(env).all()  # the envmap buffer untouched
+    stored = host_outputs(render_sg_env_host, args, (eh, ew), n_warps,
+                          exp2=True)
+    np.testing.assert_array_equal(d, stored[0])
+    np.testing.assert_array_equal(s, stored[1])
+    if reference == "plain":
+        want = [x.numpy() for x in sg_render.render_sg_plain(
+            *map(torch.from_numpy, args), fov_deg=FOV, f0=F0, env_height=eh,
+            env_width=ew)]
+    else:
+        want = jsg_render.render_sg(
+            *map(jnp.asarray, args), fov_deg=FOV, f0=F0, env_height=eh,
+            env_width=ew, interpret=True)
+    np.testing.assert_allclose(d, np.asarray(want[0]), atol=2e-5,
+                               err_msg="diffuse")
+    np.testing.assert_allclose(s, np.asarray(want[1]), atol=5e-4,
+                               err_msg="specular")
