@@ -91,30 +91,12 @@ struct Lobe {
   float ax, ay, az, lamb, wr, wg, wb;
 };
 
-// The pixel's 7K SG scalars, staged in shared memory by its warp:
-// axis [3K] | lamb [K] | weight [3K].
-struct Lobes {
-  const float* axis;
-  const float* lamb;
-  const float* weight;
-
-  __host__ __device__ __forceinline__ Lobe at(int k) const {
-    return Lobe{axis[3 * k],   axis[3 * k + 1],   axis[3 * k + 2], lamb[k],
-                weight[3 * k], weight[3 * k + 1], weight[3 * k + 2]};
-  }
-};
-
 // e_k(l) = exp(lamb_k (axis_k . l - 1)); cosm1 = axis_k . l - 1
 __host__ __device__ __forceinline__ float lobe(const Lobe& g, float4 c,
                                                float* cosm1) {
   const float cosv = c.x * g.ax + c.y * g.ay + c.z * g.az;
   *cosm1 = cosv - 1.0f;
   return expf(g.lamb * *cosm1);
-}
-
-__host__ __device__ __forceinline__ float lobe(const Lobes& g, int k,
-                                               float4 c, float* cosm1) {
-  return lobe(g.at(k), c, cosm1);
 }
 
 // `lobe` with exp2f of a sharpness scaled by log2(e) once a lobe (lamb2 =
@@ -130,19 +112,6 @@ __host__ __device__ __forceinline__ float lobe_exp2(const Lobe& g, float4 c,
   const float cosv = c.x * g.ax + c.y * g.ay + c.z * g.az;
   *cosm1 = cosv - 1.0f;
   return exp2f(lamb2 * *cosm1);
-}
-
-// The SG mixture at direction c: env_c = sum_k w_kc e_k.
-__host__ __device__ __forceinline__ void mixture(const Lobes& g, int k_num,
-                                                 float4 c, float env[3]) {
-  env[0] = env[1] = env[2] = 0.0f;
-  for (int k = 0; k < k_num; ++k) {
-    float cosm1;
-    const float e = lobe(g, k, c, &cosm1);
-    env[0] += g.weight[3 * k] * e;
-    env[1] += g.weight[3 * k + 1] * e;
-    env[2] += g.weight[3 * k + 2] * e;
-  }
 }
 
 // Per-pixel scalars of the shading: the normalised normal, its tangent frame
@@ -402,25 +371,6 @@ __device__ __forceinline__ void copy4(float* s, const float* g) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(s));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(d), "l"(g)
                : "memory");
-}
-
-// Copy pixel p's lobes into this warp's 7K floats of shared memory.
-__device__ __forceinline__ Lobes stage_lobes(float* s, const float* axis,
-                                             const float* lamb,
-                                             const float* weight,
-                                             long long p, int k_num,
-                                             int lane) {
-  Lobes l{s, s + 3 * k_num, s + 4 * k_num};
-  float* s_axis = s;
-  float* s_lamb = s + 3 * k_num;
-  float* s_wgt = s + 4 * k_num;
-  for (int i = lane; i < 3 * k_num; i += kWarp) {
-    s_axis[i] = axis[p * 3 * k_num + i];
-    s_wgt[i] = weight[p * 3 * k_num + i];
-  }
-  for (int i = lane; i < k_num; i += kWarp) s_lamb[i] = lamb[p * k_num + i];
-  __syncwarp();
-  return l;
 }
 
 #endif  // __CUDACC__

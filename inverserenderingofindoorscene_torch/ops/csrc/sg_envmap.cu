@@ -1,60 +1,52 @@
-// SG mixture -> per-pixel envmap, forward and backward, on Hopper (sm_90a).
+// The SG-envmap backward on Hopper (sm_90a).
 //
-// Replaces the TPU kernels `_env_fwd_kernel` and `_env_bwd_kernel`
-// (inverserenderingofindoorscene_tpu/ops/sg_render.py:513-528, launched by
-// `_env_run_fwd` :536 and `_get_env_op.bwd` :577; math `_env_tile_math`
-// :484-510).  Per pixel the forward evaluates
-//   env_c(l_d) = sum_k w_kc exp(lamb_k (a_k . l_d - 1))
-// on the D hemisphere directions and writes [D, 3].  The backward takes the
+// Replaces the TPU kernel `_env_bwd_kernel`
+// (inverserenderingofindoorscene_tpu/ops/sg_render.py:520-528, launched by
+// `_get_env_op.bwd` :577; the forward's math `_env_tile_math` :484-510).
+// The forward, env_c(l_d) = sum_k w_kc exp(lamb_k (a_k . l_d - 1)) on the
+// D hemisphere directions, is the SG walk without the shading
+// (sg_render_env.cu, `sg_envmap_fwd_f32`).  The backward takes the
 // envmap's adjoint g [D, 3] and writes, per lobe, the 7 sums over D
 //   d w_kc = sum_d g_c e_k,   d lamb_k = sum_d ge_k e_k (a_k . l_d - 1),
 //   d a_k = lamb_k sum_d ge_k e_k l_d,   ge_k = sum_c g_c w_kc.
 //
-// What bounds them.  At the training shape (B=5, 120x160 grid, K=12,
-// D=128: N = 96,000 pixels) the forward reads 7K = 84 floats a pixel and
-// writes 3D = 384; the backward reads 84 + 384 and writes 84: ~180 MB
-// forward (~54 us at 3.35 TB/s), ~212 MB backward (~63 us).  Counted as
-// f32 operations (an IEEE expf as one) the backward is ~0.053 ms at 67
-// TFLOP/s, but it is bound by instruction issue: in SASS (`cuobjdump
-// -sass` of the built library) its direction loop is 252 instructions for
-// 12 lobe-directions, 21.0 each with the exp2f of lobe_exp2 (25.2 each
-// with expf, which is why the exponential is exp2f), so N K D 21 / 32 ~
-// 97 M warp instructions, ~0.093 ms at 132 SMs x 4 schedulers x 1.98 GHz.
-// It runs at 0.156 ms on an H100 80GB HBM3 at 700 W (chip_smoke.py phase
-// 3), ~60% of the issue rate, against 0.300 for the earlier design of one
-// warp a pixel, which summed each lobe's seven products across the warp
-// with shuffles (~40% of what it issued).  What the card showed
-// (build-time variants of this source timed side by side by a probe that
-// is not kept): 3 lobes a thread beat 1, 2 and 4; chunks of 64 directions
-// beat 128 there; reading g and the directions straight from device memory
-// through L1, without staging, was slower at K=12 and more so at K=4 and
-// D=200; a register cap for more blocks an SM spilled or was no faster.
-// 120 registers, no spill.
+// What bounds it.  At the training shape (B=5, 120x160 grid, K=12,
+// D=128: N = 96,000 pixels) it reads 7K + 3D = 468 floats a pixel and
+// writes 7K = 84: ~212 MB (~63 us at 3.35 TB/s).  Counted as f32
+// operations (an IEEE expf as one) it is ~0.053 ms at 67 TFLOP/s, but it
+// is bound by instruction issue: in SASS (`cuobjdump -sass` of the built
+// library) its direction loop is 252 instructions for 12 lobe-directions,
+// 21.0 each with the exp2f of lobe_exp2 (25.2 each with expf, which is why
+// the exponential is exp2f), so N K D 21 / 32 ~ 97 M warp instructions,
+// ~0.093 ms at 132 SMs x 4 schedulers x 1.98 GHz.  It runs at 0.156 ms on
+// an H100 80GB HBM3 at 700 W (chip_smoke.py phase 3), ~60% of the issue
+// rate, against 0.300 for the earlier design of one warp a pixel, which
+// summed each lobe's seven products across the warp with shuffles (~40%
+// of what it issued).  What the card showed (build-time variants of this
+// source timed side by side by a probe that is not kept): 3 lobes a
+// thread beat 1, 2 and 4; chunks of 64 directions beat 128 there; reading
+// g and the directions straight from device memory through L1, without
+// staging, was slower at K=12 and more so at K=4 and D=200; a register
+// cap for more blocks an SM spilled or was no faster.  120 registers, no
+// spill.
 //
-// The forward's design.  One warp per pixel, eight pixels to a block;
-// lane i takes directions i, i+32, i+64, i+96.  The pixel's 7K SG scalars
-// are staged once in shared memory and read as broadcasts.  The envmap
-// moves as one contiguous run of 3D floats per pixel, the lanes of a warp
-// on neighbouring triples, so its writes coalesce.
-//
-// The backward's design.  In the backward the lobes are independent: lobe
-// k's seven sums read only its own seven scalars and the pixel's g [D, 3].
-// So one thread owns 3 lobes of one pixel (kBwdLobes; S = ceil(K / 3)
-// threads a pixel), keeps their scalars and seven sums each in registers
-// and walks all D directions: no sum crosses threads, and each thread
-// stores its own gradients.  Threads run pixel-major, lobe-minor, so the
-// lobe loads and gradient stores are coalesced runs.  A block takes
-// groups of G = min(16, 256 / S) pixels (G S threads) and walks its groups
-// (b, b + gridDim.x, ...) and each group's chunks of up to 64 directions
-// as one sequence of stages in a shared-memory double buffer: while the
-// threads work on one stage, cp.async (16-byte copies where D is a
-// multiple of 4) brings the next one, the chunk's direction rows and each
-// pixel's g run into a padded slot, so the S threads of a pixel read each
-// direction and its adjoint as broadcasts, and each thread's lobes of its
-// next group come into registers (sg_envmap_bwd.cuh).  Any D runs: a tail
-// of a chunk becomes dummy directions with a zero adjoint.  The grid is as
-// many blocks as fit on the card at once.  The TPU kernels' transposed
-// [D, P] tiles exist for TPU lanes and are not carried over.
+// The design.  The lobes are independent: lobe k's seven sums read only its
+// own seven scalars and the pixel's g [D, 3].  So one thread owns 3 lobes of
+// one pixel (kBwdLobes; S = ceil(K / 3) threads a pixel), keeps their scalars
+// and seven sums each in registers and walks all D directions: no sum crosses
+// threads, and each thread stores its own gradients.  Threads run
+// pixel-major, lobe-minor, so the lobe loads and gradient stores are
+// coalesced runs.  A block takes groups of G = min(16, 256 / S) pixels (G S
+// threads) and walks its groups (b, b + gridDim.x, ...) and each group's
+// chunks of up to 64 directions as one sequence of stages in a shared-memory
+// double buffer: while the threads work on one stage, cp.async (16-byte
+// copies where D is a multiple of 4) brings the next one, the chunk's
+// direction rows and each pixel's g run into a padded slot, so the S threads
+// of a pixel read each direction and its adjoint as broadcasts, and each
+// thread's lobes of its next group come into registers (sg_envmap_bwd.cuh).
+// Any D runs: a tail of a chunk becomes dummy directions with a zero adjoint.
+// The grid is as many blocks as fit on the card at once.  The TPU kernel's
+// transposed [D, P] tiles exist for TPU lanes and are not carried over.
 
 #include <climits>
 
@@ -63,30 +55,6 @@
 namespace {
 
 using namespace sgk;
-
-constexpr int kWarpsPerBlock = 8;
-
-__global__ void sg_envmap_fwd_kernel(const float* __restrict__ axis,
-                                     const float* __restrict__ lamb,
-                                     const float* __restrict__ weight,
-                                     const float4* __restrict__ dirs,
-                                     float* __restrict__ env, long long n_pix,
-                                     int k_num, int d_num) {
-  extern __shared__ float smem[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const long long p = (long long)blockIdx.x * kWarpsPerBlock + warp;
-  if (p >= n_pix) return;  // whole warps leave; no block barrier follows
-  const Lobes g = stage_lobes(smem + warp * 7 * k_num, axis, lamb, weight, p,
-                              k_num, lane);
-  float* out = env + p * 3 * d_num;
-  for (int d = lane; d < d_num; d += kWarp) {
-    float e[3];
-    mixture(g, k_num, dirs[d], e);
-    out[3 * d] = e[0];
-    out[3 * d + 1] = e[1];
-    out[3 * d + 2] = e[2];
-  }
-}
 
 // The copies of one stage's slots: thread t takes copies t, t + T, ... of
 // the n_px q copies of `width` floats (copy j of pixel px at float
@@ -240,33 +208,9 @@ int launch_bwd(const float* axis, const float* lamb, const float* weight,
   return (int)cudaGetLastError();
 }
 
-int smem_bytes(int k_num) {
-  return (int)sizeof(float) * kWarpsPerBlock * 7 * k_num;
-}
-
-unsigned int n_blocks(long long n_pix) {
-  return (unsigned int)((n_pix + kWarpsPerBlock - 1) / kWarpsPerBlock);
-}
-
 }  // namespace
 
 extern "C" {
-
-// Shared-memory bytes a block needs for K lobes.
-int sg_envmap_smem_bytes(int k_num) { return smem_bytes(k_num); }
-
-// Launch on `stream`; return cudaGetLastError() after the launch.  Pointers
-// are contiguous float32 device arrays: axis/weight [N, 3K], lamb [N, K],
-// dirs [D, 4] (x, y, z, solid angle); out env [N, D, 3].
-int sg_envmap_fwd_f32(const float* axis, const float* lamb,
-                      const float* weight, const float* dirs, float* env,
-                      long long n_pix, int k_num, int d_num, void* stream) {
-  sg_envmap_fwd_kernel<<<n_blocks(n_pix), kWarpsPerBlock * kWarp,
-                         smem_bytes(k_num), (cudaStream_t)stream>>>(
-      axis, lamb, weight, reinterpret_cast<const float4*>(dirs), env, n_pix,
-      k_num, d_num);
-  return (int)cudaGetLastError();
-}
 
 // g_env [N, D, 3] in; d_axis/d_weight [N, 3K], d_lamb [N, K] out; any D,
 // K <= 768 (else cudaErrorInvalidValue).

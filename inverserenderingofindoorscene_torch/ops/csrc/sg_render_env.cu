@@ -8,38 +8,61 @@
 // into diffuse and specular [3].  Forward only: serving never
 // differentiates.
 //
-// The same walk without the envmap stores is the training forward
-// `render_sg_fwd` (`render_sg_fwd_f32`), which replaces the TPU kernel
-// `_fwd_kernel` launched by `_run_fwd` (ops/sg_render.py:189, :240): one
-// template, sg_render_walk_kernel<kStoreEnv, kExp2>, where render_sg_env
-// is <true, false> (its SASS as before the template, but for register
-// names) and render_sg_fwd <false, true>: with the exponential as exp2f of
-// a sharpness scaled by log2(e) in the lobe records, its lobe loop is 105
-// instructions for 8 lobe-directions (13.1 each, against 17.4 with expf).
-// At the training shape (B=5, 120x160, K=12, D=128) it takes 0.144 ms on
-// an H100 80GB HBM3 at 700 W (chip_smoke.py phase 3), against 0.213 for
-// the earlier forward of one 8-warp block per 8 pixels, whose every lane
-// built the pixel's frame and read each lobe as 7 scalar loads.
+// The same walk serves two more entries, one template
+// sg_render_walk_kernel<Walk> (render_sg_env is Walk::kServe, its SASS as
+// before the template, but for register names).  Without the envmap
+// stores it is the training forward `render_sg_fwd` (Walk::kTrain,
+// `render_sg_fwd_f32`), which replaces the TPU kernel `_fwd_kernel`
+// launched by `_run_fwd` (ops/sg_render.py:189, :240): with the
+// exponential as exp2f of a sharpness scaled by log2(e) in the lobe
+// records, its lobe loop is 105 instructions for 8 lobe-directions (13.1
+// each, against 17.4 with expf).  At the training shape (B=5, 120x160,
+// K=12, D=128) it takes 0.144 ms on an H100 80GB HBM3 at 700 W
+// (chip_smoke.py phase 3), against 0.213 for the earlier forward of one
+// 8-warp block per 8 pixels, whose every lane built the pixel's frame and
+// read each lobe as 7 scalar loads.
 //
-// What bounds it.  At the serving shape (B=1, 120x160 grid, K=12, D=128)
-// each pixel reads 7K+7 = 91 floats (plus its 3-float view vector) and
-// writes 6 + 3D = 390; the envmap is 80% of the ~37 MB moved, ~11 us at
-// 3.35 TB/s, and counted as f32 operations (an IEEE expf, divide or square
-// root as one) the work is ~5 us.  Both sit below what the SMs can issue.
-// In SASS (`cuobjdump -sass` of the built library) the lobe loop is 139
-// instructions for 8 lobe-directions (17.4 each, 8 of them the expf), the
+// Without the shading it is the envmap forward `sg_envmap_fwd`
+// (Walk::kEnvmap, `sg_envmap_fwd_f32`), which replaces the TPU kernel
+// `_env_fwd_kernel` launched by `_env_run_fwd` (ops/sg_render.py:513,
+// :536; math `_env_tile_math`, :484-510): no frames, no shading, no
+// shuffles, only the inputs' prefetch, the records, the lobe loop (105
+// instructions for 8 lobe-directions, with exp2f) and the envmap stores;
+// any D.  At the training shape it reads 7K = 84 floats a pixel and
+// writes 3D = 384, ~180 MB (~54 us at 3.35 TB/s), and issues ~800 warp
+// instructions a pixel, ~77 M in all (~74 us at 132 SMs x 4 schedulers x
+// 1.98 GHz): it is bound by issue.  64 registers with a minimum of 4
+// blocks an SM (72 and 3 blocks without one; 48 for 5 blocks, 40 or fewer
+// for 6 or 8 spill), 8,448 bytes of shared memory a block at K=12.
+// Device time 0.096 ms (H100 80GB HBM3, 700 W; chip_smoke.py phase 3)
+// against 0.162 for the earlier kernel of one warp a pixel, which read
+// each lobe as 7 scalar shared loads for every direction, with expf.
+// What the card showed (probe_sg_envmap_fwd.py, variants of this source
+// side by side in one call): lanes on four consecutive directions, each
+// storing its 12 floats as three float4, 2% slower; streaming stores
+// (__stcs) 1-4% slower; expf 24% slower; 5, 6 or 8 blocks an SM slower;
+// the bare ex2.approx.ftz in place of exp2f (which adds a range check
+// for results below 2^-126) 12% faster, not taken here, as lobe_exp2 is
+// also render_sg_fwd's and sg_envmap_bwd's exponential.
+//
+// What bounds the serving kernel.  At the serving shape (B=1, 120x160 grid,
+// K=12, D=128) each pixel reads 7K+7 = 91 floats (plus its 3-float view
+// vector) and writes 6 + 3D = 390; the envmap is 80% of the ~37 MB moved, ~11
+// us at 3.35 TB/s, and counted as f32 operations (an IEEE expf, divide or
+// square root as one) the work is ~5 us.  Both sit below what the SMs can
+// issue.  In SASS (`cuobjdump -sass` of the built library) the lobe loop is
+// 139 instructions for 8 lobe-directions (17.4 each, 8 of them the expf), the
 // rest of a pass at most 524 for a lane's 4 directions (131 each: the
-// shading's IEEE square root, reciprocal and divide each carry a range
-// check and a slow-path call), and the per-pixel code at most 566 a lane
-// (142 a direction), most of it the frame batch that runs once every 32
-// pixels.  The lobe loop alone at K=12 is 19200 x 128 x 12 x 17.4 / 32
-// warp instructions, ~17 us at 132 SMs x 4 schedulers x 1.755 GHz.  80
-// registers, no spill; 12,288 + 704 K bytes of shared memory a block for K
-// a multiple of 4 (20,736 at K=12).  Device time 0.0388 ms at K=12 and
-// 0.0263 at K=4 (chip_smoke.py phase 3, H100 80GB HBM3, 700 W), against
-// 0.0630 and 0.0456 for the earlier design of one 128-thread block a
-// pixel, which recomputed the frame on every thread and summed across
-// warps through shared memory.
+// shading's IEEE square root, reciprocal and divide each carry a range check
+// and a slow-path call), and the per-pixel code at most 566 a lane (142 a
+// direction), most of it the frame batch that runs once every 32 pixels.  The
+// lobe loop alone at K=12 is 19200 x 128 x 12 x 17.4 / 32 warp instructions,
+// ~17 us at 132 SMs x 4 schedulers x 1.755 GHz.  80 registers, no spill;
+// 12,288 + 704 K bytes of shared memory a block for K a multiple of 4 (20,736
+// at K=12).  Device time 0.0388 ms at K=12 and 0.0263 at K=4 (chip_smoke.py
+// phase 3, H100 80GB HBM3, 700 W), against 0.0630 and 0.0456 for the earlier
+// design of one 128-thread block a pixel, which recomputed the frame on every
+// thread and summed across warps through shared memory.
 //
 // What the card showed (build-time variants of this source, timed side by
 // side in one run each): warps that never wait for each other were alone
@@ -78,8 +101,10 @@
 // through sg_common.cuh.  Build without --use_fast_math: the tolerances
 // against the plain PyTorch version assume IEEE expf/exp2f/sqrtf and
 // division (and 1/sqrtf, not rsqrtf).  In render_sg_env the lobe stays
-// expf(lamb (cos - 1)), as the TPU kernel's jnp.exp; render_sg_fwd's
-// exp2f passes the same tolerances.
+// expf(lamb (cos - 1)), as the TPU kernel's jnp.exp; the exp2f of
+// render_sg_fwd and sg_envmap_fwd passes the same tolerances.  The
+// mixture keeps `_env_tile_math`'s order: lobes in order, one FMA a
+// channel.
 
 #include <climits>
 
@@ -89,20 +114,27 @@ namespace {
 
 using namespace sgk;
 
+// The walk's three entries: render_sg_env stores the envmap and shades
+// with expf; render_sg_fwd shades with exp2f; sg_envmap_fwd stores the
+// envmap with exp2f and does not shade.
+enum class Walk { kServe, kTrain, kEnvmap };
+
 constexpr int kWarps = 8;  // warps (pixels at a time) a block
 constexpr int kThreads = kWarps * kWarp;
-// three blocks (24 warps) an SM: 80 registers, no spill; a 72- or
-// 64-register cap for more warps spills and runs slower
+// blocks an SM: the shading walks three (24 warps; 80 registers, no
+// spill; a 72- or 64-register cap for more warps spills and runs slower),
+// the envmap walk four (32 warps; 64 registers, no spill)
 constexpr int kBlocksPerSM = 3;
+constexpr int kEnvBlocksPerSM = 4;
 
-// A warp's shared memory, in floats: the frame slots of its next 32
-// pixels | one pixel's lobe records | two buffers of a pixel's raw SG
-// inputs.  Every part is a multiple of 4 floats, so each starts on 16
-// bytes.
+// A warp's shared memory, in floats: with the shading, the frame slots of
+// its next 32 pixels | one pixel's lobe records | two buffers of a pixel's
+// raw SG inputs.  Every part is a multiple of 4 floats, so each starts on
+// 16 bytes.
 struct WarpSmem {
   static constexpr int kFrames = kWarp * kFrameFloats;
-  static __host__ __device__ int floats(int k_num) {
-    return kFrames + kRecord * k_num + 2 * Raw::floats(k_num);
+  static __host__ __device__ int floats(int k_num, bool shade) {
+    return (shade ? kFrames : 0) + kRecord * k_num + 2 * Raw::floats(k_num);
   }
 };
 
@@ -146,22 +178,28 @@ __device__ __forceinline__ void prefetch_pixel(float* raw, const float* axis,
 
 // Warp w of W = gridDim.x kWarps takes pixels w, w + W, ...; the warps are
 // numbered warp-major, so the warps with one pixel more spread over the
-// SMs.  kStoreEnv: write the envmap (render_sg_env) or not (render_sg_fwd,
-// which passes no env); kExp2: lobe_exp2's exponential.
-template <bool kStoreEnv, bool kExp2>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM) sg_render_walk_kernel(
-    const float* __restrict__ albedo, const float* __restrict__ normal,
-    const float* __restrict__ rough, const float* __restrict__ axis,
-    const float* __restrict__ lamb, const float* __restrict__ weight,
-    const float* __restrict__ view, const float4* __restrict__ dirs,
-    float* __restrict__ diffuse, float* __restrict__ specular,
-    float* __restrict__ env, int n_pix, int hw, int k_num, int d_num,
-    float f0) {
+// SMs.  The envmap walk (kEnvmap) reads only axis, lamb, weight and dirs
+// and writes only env; render_sg_fwd passes no env.
+template <Walk kWalk>
+__global__ void __launch_bounds__(kThreads, kWalk == Walk::kEnvmap
+                                                ? kEnvBlocksPerSM
+                                                : kBlocksPerSM)
+    sg_render_walk_kernel(
+        const float* __restrict__ albedo, const float* __restrict__ normal,
+        const float* __restrict__ rough, const float* __restrict__ axis,
+        const float* __restrict__ lamb, const float* __restrict__ weight,
+        const float* __restrict__ view, const float4* __restrict__ dirs,
+        float* __restrict__ diffuse, float* __restrict__ specular,
+        float* __restrict__ env, int n_pix, int hw, int k_num, int d_num,
+        float f0) {
+  constexpr bool kShade = kWalk != Walk::kEnvmap;
+  constexpr bool kStoreEnv = kWalk != Walk::kTrain;
+  constexpr bool kExp2 = kWalk != Walk::kServe;
   extern __shared__ float4 smem4[];
   const int lane = threadIdx.x & (kWarp - 1), warp = threadIdx.x / kWarp;
-  float* frames =
-      reinterpret_cast<float*>(smem4) + warp * WarpSmem::floats(k_num);
-  float* rec = frames + WarpSmem::kFrames;
+  float* frames =  // the warp's part; no frame slots without the shading
+      reinterpret_cast<float*>(smem4) + warp * WarpSmem::floats(k_num, kShade);
+  float* rec = frames + (kShade ? WarpSmem::kFrames : 0);
   float* raw = rec + kRecord * k_num;
   const int raw_n = Raw::floats(k_num);
   const int n_warps = gridDim.x * kWarps;
@@ -174,7 +212,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) sg_render_walk_kernel(
   for (int j = 0, p = warp_id; p < n_pix; ++j, p += n_warps) {
     prefetch_pixel(raw + ((j + 1) & 1) * raw_n, axis, lamb, weight,
                    p + n_warps, n_pix, k_num, vec, lane);
-    if ((j & (kWarp - 1)) == 0) {  // the frames of this and the next 31
+    if (kShade && (j & (kWarp - 1)) == 0) {  // frames of this, the next 31
       const int q = warp_pixel(warp_id, j + lane, n_warps);
       if (q < n_pix) {
         frame_slot(albedo, normal, rough, view, q, hw,
@@ -187,51 +225,59 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSM) sg_render_walk_kernel(
     __syncwarp();
 
     const float* slot = frames + kFrameFloats * (j & (kWarp - 1));
-    const Frame f = load_frame(slot);
+    Frame f{};
+    if constexpr (kShade) f = load_frame(slot);
+    float* out = kStoreEnv ? env + (long long)p * (3 * d_num) : nullptr;
     float sum[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
     for (int c0 = 0; c0 < d_num; c0 += kPassDirs) {
       float4 c[kDirsPerLane];
       float mix[kDirsPerLane][3];
-      env_lane_mix<kStoreEnv, kExp2>(
-          rec, k_num, dirs, d_num, c0, lane, c, mix,
-          kStoreEnv ? env + (long long)p * (3 * d_num) + 3 * c0 : nullptr);
-      env_lane_shade(f, c, mix, f0, sum);
+      env_lane_mix<kStoreEnv, kExp2>(rec, k_num, dirs, d_num, c0, lane, c,
+                                     mix, kStoreEnv ? out + 3 * c0 : nullptr);
+      if constexpr (kShade) env_lane_shade(f, c, mix, f0, sum);
     }
+    if constexpr (kShade) {
 #pragma unroll
-    for (int i = 0; i < 6; ++i) sum[i] = warp_sum(sum[i]);
-    if (lane < 3) {
-      const float sd = lane == 0 ? sum[0] : (lane == 1 ? sum[1] : sum[2]);
-      const float ss = lane == 0 ? sum[3] : (lane == 1 ? sum[4] : sum[5]);
-      diffuse[3 * p + lane] = slot[8 + lane] * sd;
-      specular[3 * p + lane] = ss;
+      for (int i = 0; i < 6; ++i) sum[i] = warp_sum(sum[i]);
+      if (lane < 3) {
+        const float sd = lane == 0 ? sum[0] : (lane == 1 ? sum[1] : sum[2]);
+        const float ss = lane == 0 ? sum[3] : (lane == 1 ? sum[4] : sum[5]);
+        diffuse[3 * p + lane] = slot[8 + lane] * sd;
+        specular[3 * p + lane] = ss;
+      }
     }
     __syncwarp();  // the slot, records and raw buffer are read
   }
   asm volatile("cp.async.wait_group 0;" ::: "memory");
 }
 
-int smem_bytes(int k_num) {
-  return (int)sizeof(float) * kWarps * WarpSmem::floats(k_num);
+int smem_bytes(int k_num, bool shade) {
+  return (int)sizeof(float) * kWarps * WarpSmem::floats(k_num, shade);
 }
 
-// Launch the walk on `stream`; return the first CUDA error of the launch.
-template <bool kStoreEnv, bool kExp2>
+// Launch the walk on `stream` on as many blocks as fit on the card at
+// once; return the first CUDA error of the launch.
+template <Walk kWalk>
 int launch_walk(const float* albedo, const float* normal, const float* rough,
                 const float* axis, const float* lamb, const float* weight,
                 const float* view, const float* dirs, float* diffuse,
                 float* specular, float* env, long long n_pix, int hw,
                 int k_num, int d_num, float f0, cudaStream_t stream) {
-  const int smem = smem_bytes(k_num);
-  int device = 0, sms = 0;
+  const auto kernel = sg_render_walk_kernel<kWalk>;
+  const int smem = smem_bytes(k_num, kWalk != Walk::kEnvmap);
+  int device = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                  device);
   }
   if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(sg_render_walk_kernel<kStoreEnv, kExp2>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, smem);
   }
   // pixel indices are 32-bit, and a frame batch looks 31 strides past a
   // warp's pixel
@@ -240,13 +286,12 @@ int launch_walk(const float* albedo, const float* normal, const float* rough,
   }
   if (err != cudaSuccess) return (int)err;
   const long long blocks = (n_pix + kWarps - 1) / kWarps;
-  const long long slots = (long long)kBlocksPerSM * sms;
+  const long long slots = (long long)(per_sm > 0 ? per_sm : 1) * sms;
   const unsigned int grid = (unsigned int)(blocks < slots ? blocks : slots);
-  sg_render_walk_kernel<kStoreEnv, kExp2>
-      <<<grid, kThreads, smem, stream>>>(
-          albedo, normal, rough, axis, lamb, weight, view,
-          reinterpret_cast<const float4*>(dirs), diffuse, specular, env,
-          (int)n_pix, hw, k_num, d_num, f0);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      albedo, normal, rough, axis, lamb, weight, view,
+      reinterpret_cast<const float4*>(dirs), diffuse, specular, env,
+      (int)n_pix, hw, k_num, d_num, f0);
   return (int)cudaGetLastError();
 }
 
@@ -254,12 +299,11 @@ int launch_walk(const float* albedo, const float* normal, const float* rough,
 
 extern "C" {
 
-// Shared-memory bytes a block needs for K lobes (above 48 KB the launch
-// opts in, up to the card's per-block limit); D does not enter.  The same
-// for both entries.
-int sg_render_env_smem_bytes(int k_num, int d_num) {
-  (void)d_num;
-  return smem_bytes(k_num);
+// Shared-memory bytes a block needs for K lobes, with the shading
+// (render_sg_env, render_sg_fwd) or without (sg_envmap_fwd); above 48 KB
+// the launch opts in, up to the card's per-block limit.  D does not enter.
+int sg_walk_smem_bytes(int k_num, int shade) {
+  return smem_bytes(k_num, shade != 0);
 }
 
 // Launch on `stream`; return the first CUDA error of the launch.  All
@@ -272,9 +316,9 @@ int sg_render_env_f32(const float* albedo, const float* normal,
                       const float* dirs, float* diffuse, float* specular,
                       float* env, long long n_pix, int hw, int k_num,
                       int d_num, float f0, void* stream) {
-  return launch_walk<true, false>(albedo, normal, rough, axis, lamb, weight,
-                                  view, dirs, diffuse, specular, env, n_pix,
-                                  hw, k_num, d_num, f0, (cudaStream_t)stream);
+  return launch_walk<Walk::kServe>(albedo, normal, rough, axis, lamb, weight,
+                                   view, dirs, diffuse, specular, env, n_pix,
+                                   hw, k_num, d_num, f0, (cudaStream_t)stream);
 }
 
 // The same walk without the envmap, with lobe_exp2's exponential:
@@ -285,10 +329,21 @@ int render_sg_fwd_f32(const float* albedo, const float* normal,
                       const float* dirs, float* diffuse, float* specular,
                       long long n_pix, int hw, int k_num, int d_num, float f0,
                       void* stream) {
-  return launch_walk<false, true>(albedo, normal, rough, axis, lamb, weight,
-                                  view, dirs, diffuse, specular, nullptr,
-                                  n_pix, hw, k_num, d_num, f0,
-                                  (cudaStream_t)stream);
+  return launch_walk<Walk::kTrain>(albedo, normal, rough, axis, lamb, weight,
+                                   view, dirs, diffuse, specular, nullptr,
+                                   n_pix, hw, k_num, d_num, f0,
+                                   (cudaStream_t)stream);
+}
+
+// The same walk without the shading, with lobe_exp2's exponential: axis /
+// weight [N,3K], lamb [N,K] and dirs [D,4] in, env [N,D,3] out; any D.
+int sg_envmap_fwd_f32(const float* axis, const float* lamb,
+                      const float* weight, const float* dirs, float* env,
+                      long long n_pix, int k_num, int d_num, void* stream) {
+  return launch_walk<Walk::kEnvmap>(nullptr, nullptr, nullptr, axis, lamb,
+                                    weight, nullptr, dirs, nullptr, nullptr,
+                                    env, n_pix, 1, k_num, d_num, 0.0f,
+                                    (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,14 +1,15 @@
-// The SG shading walk's per-pixel and per-lane arithmetic: the raw layout
-// of a pixel's SG inputs, its lobe records, the frame prologue and one
-// lane's pass over its directions.  `sg_render_walk_kernel`
-// (sg_render_env.cu; `render_sg_env` stores the envmap, `render_sg_fwd`
-// does not) runs them on one warp per pixel, each warp walking its own
-// pixels; the CPU check (tests/test_torch_sg_render_env_host.py)
+// The SG walk's per-pixel and per-lane arithmetic: the raw layout of a
+// pixel's SG inputs, its lobe records, the frame prologue and one lane's
+// pass over its directions.  `sg_render_walk_kernel` (sg_render_env.cu)
+// runs them on one warp per pixel, each warp walking its own pixels, for
+// three entries: `render_sg_env` stores the envmap and shades,
+// `render_sg_fwd` shades without storing, `sg_envmap_fwd` stores without
+// shading.  The CPU check (tests/test_torch_sg_render_env_host.py)
 // builds this header with g++ and runs the same functions warp by warp and
 // lane by lane, so the pixel walk, the frame batches, the lane split, the
-// tail of the directions and the record layout are checked before the
-// card.  The shading is sg_common.cuh's `make_frame` and `shade`, as in
-// training.
+// tail of the directions, the record layout and the envmap stores are
+// checked before the card.  The shading is sg_common.cuh's `make_frame`
+// and `shade`, as in training.
 
 #pragma once
 

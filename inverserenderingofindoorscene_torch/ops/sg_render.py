@@ -7,8 +7,9 @@ Counterparts of the JAX package's ``ops/sg_render.py``, with its NHWC API:
 * ``render_sg`` (decode + shading, differentiable; its forward is the
   serving kernel's walk without the envmap stores, ``csrc/sg_render_env.cu``,
   its backward ``csrc/sg_render.cu``);
-* ``sg_envmap`` (decode to the per-pixel envmap, differentiable;
-  ``csrc/sg_envmap.cu``).
+* ``sg_envmap`` (decode to the per-pixel envmap, differentiable; its
+  forward is the same walk without the shading, ``csrc/sg_render_env.cu``,
+  its backward ``csrc/sg_envmap.cu``).
 
 Each kernel has a launch wrapper (``render_sg_env``, ``render_sg_fwd``,
 ``render_sg_bwd``, ``sg_envmap_fwd``, ``sg_envmap_bwd``) that on CUDA
@@ -40,13 +41,13 @@ from inverserenderingofindoorscene_torch.core.sphere import (
 )
 from inverserenderingofindoorscene_torch.ops import build
 
-# dynamic shared memory a block may take without an opt-in attribute, and
-# with it on Hopper (227 KB; the render backward's and render_sg_env's
-# launches opt in)
-_SMEM_LIMIT = 48 * 1024
+# dynamic shared memory a block may take on Hopper with the opt-in
+# attribute (227 KB; the render backward's and the walk's launches opt in
+# above 48 KB)
 _SMEM_OPTIN_LIMIT = 227 * 1024
 # directions: the render backward's bound (its API's; it walks the
-# directions in chunks), and the shading walk's
+# directions in chunks), and the shading walk's (the envmap walk takes any
+# D)
 _MAX_BWD_DIRS = 128
 _MAX_WALK_DIRS = 1024
 
@@ -56,16 +57,15 @@ _SIGNATURES = {
     "sg_render_env": {
         "sg_render_env_f32": [_P] * 11 + [_LL, _I, _I, _I, _F, _P],
         "render_sg_fwd_f32": [_P] * 10 + [_LL, _I, _I, _I, _F, _P],
-        "sg_render_env_smem_bytes": [_I, _I],
+        "sg_envmap_fwd_f32": [_P] * 5 + [_LL, _I, _I, _P],
+        "sg_walk_smem_bytes": [_I, _I],
     },
     "sg_render": {
         "render_sg_bwd_f32": [_P] * 16 + [_LL, _I, _I, _I, _F, _P],
         "render_sg_bwd_smem_bytes": [_I, _I],
     },
     "sg_envmap": {
-        "sg_envmap_fwd_f32": [_P] * 5 + [_LL, _I, _I, _P],
         "sg_envmap_bwd_f32": [_P] * 8 + [_LL, _I, _I, _P],
-        "sg_envmap_smem_bytes": [_I],
     },
 }
 
@@ -140,7 +140,7 @@ def _walk_inputs(fn, albedo, normal, rough, axis, lamb, weight, fov_deg,
     if d > _MAX_WALK_DIRS:
         raise ValueError(f"{fn}: {d} directions > {_MAX_WALK_DIRS}")
     lib = _lib("sg_render_env")
-    _check_smem(fn, k, lib.sg_render_env_smem_bytes(k, d), _SMEM_OPTIN_LIMIT)
+    _check_smem(fn, k, lib.sg_walk_smem_bytes(k, 1), _SMEM_OPTIN_LIMIT)
     dev = albedo.device
     tables = (_view(h, w, float(fov_deg), dev),
               _dir_consts(env_height, env_width, dev))
@@ -239,22 +239,27 @@ def sg_envmap_bwd_plain(axis, lamb, weight, g_env, env_height=8,
 
 
 def _envmap_inputs(fn, axis, lamb, weight):
+    """Check the lobe inputs of a CUDA launch; returns (n pixels, k)."""
     b, h, w, k = lamb.shape
     _check(fn, axis.device, {
         "axis": (axis, (b, h, w, k, 3)),
         "lamb": (lamb, (b, h, w, k)),
         "weight": (weight, (b, h, w, k, 3)),
     })
-    return _lib("sg_envmap"), b * h * w, k
+    return b * h * w, k
 
 
 def sg_envmap_fwd(axis, lamb, weight, env_height=8, env_width=16):
-    """Launch the forward kernel (CUDA) or run :func:`sg_envmap_plain`
-    (CPU).  Not differentiable; :func:`sg_envmap` is."""
+    """Launch the forward kernel, the SG walk without the shading
+    (CUDA; any D, K <= 329, the block's shared memory, else ValueError),
+    or run :func:`sg_envmap_plain` (CPU).  Not differentiable;
+    :func:`sg_envmap` is."""
     if not build.on_card("sg_envmap_fwd", axis):
         return sg_envmap_plain(axis, lamb, weight, env_height, env_width)
-    lib, n, k = _envmap_inputs("sg_envmap_fwd", axis, lamb, weight)
-    _check_smem("sg_envmap_fwd", k, lib.sg_envmap_smem_bytes(k), _SMEM_LIMIT)
+    n, k = _envmap_inputs("sg_envmap_fwd", axis, lamb, weight)
+    lib = _lib("sg_render_env")
+    _check_smem("sg_envmap_fwd", k, lib.sg_walk_smem_bytes(k, 0),
+                _SMEM_OPTIN_LIMIT)
     d = env_height * env_width
     dev = axis.device
     env = torch.empty(lamb.shape[:3] + (d, 3), dtype=torch.float32,
@@ -277,7 +282,8 @@ def sg_envmap_bwd(axis, lamb, weight, g_env, env_height=8, env_width=16):
     if not build.on_card("sg_envmap_bwd", axis):
         return sg_envmap_bwd_plain(axis, lamb, weight, g_env, env_height,
                                    env_width)
-    lib, n, k = _envmap_inputs("sg_envmap_bwd", axis, lamb, weight)
+    n, k = _envmap_inputs("sg_envmap_bwd", axis, lamb, weight)
+    lib = _lib("sg_envmap")
     d = env_height * env_width
     _check("sg_envmap_bwd", axis.device,
            {"g_env": (g_env, lamb.shape[:3] + (d, 3))})
@@ -319,9 +325,10 @@ def sg_envmap(axis, lamb, weight, env_height=8, env_width=16):
 
     axis [B,H,W,K,3], lamb [B,H,W,K] (physical), weight [B,H,W,K,3]
     (physical).  Returns envmap [B,H,W,D,3] with the semantics of
-    ``core.sg.sg_to_envmap``; the forward and backward are the kernels of
-    ``csrc/sg_envmap.cu`` on CUDA tensors, their plain versions on CPU
-    tensors."""
+    ``core.sg.sg_to_envmap``; on CUDA tensors the forward is the walk of
+    ``csrc/sg_render_env.cu`` without the shading and the backward the
+    kernel of ``csrc/sg_envmap.cu``, on CPU tensors their plain
+    versions."""
     axis, lamb, weight = (x.contiguous() for x in (axis, lamb, weight))
     return _SGEnvmap.apply(axis, lamb, weight, int(env_height),
                            int(env_width))

@@ -10,7 +10,8 @@ directions of a 128-direction pass (``env_lane_mix``) and shades them
 but the copies, the shuffles and the stores is csrc/sg_render_env.cuh.
 The serving kernel ``render_sg_env`` is the walk that stores the envmap
 with ``expf``; the training forward ``render_sg_fwd`` is the walk without
-the stores, with ``exp2f`` (``lobe_exp2``).
+the stores, with ``exp2f`` (``lobe_exp2``); the envmap forward
+``sg_envmap_fwd`` is the walk without the shading, with ``exp2f``.
 Here g++ builds the header into a small library that runs the same
 functions warp by warp and lane by lane, on a few warps so that the frame
 batches roll over, with the butterfly written out in the same order,
@@ -23,7 +24,10 @@ walk without the stores is held against ``render_sg_plain`` and the Pallas
 ``render_sg`` (the TPU kernel it replaces) at the same diffuse and
 specular tolerances, gives the diffuse and specular of the storing walk
 with the same exponential bit for bit (that walk is built here only for
-the comparison), and leaves the envmap buffer untouched.
+the comparison), and leaves the envmap buffer untouched.  The walk
+without the shading is held against ``sg_envmap_plain`` and the Pallas
+``sg_envmap`` (the TPU kernel it replaces) at the envmap tolerance, and
+gives the storing walk's envmap with the same exponential bit for bit.
 """
 
 import ctypes
@@ -39,9 +43,10 @@ from test_torch_sg_render import assert_outputs_close, make_inputs
 from test_torch_sg_render_host import build_host
 
 # the kernel's warps and lanes one after another, with the kernel's C
-# signature less the stream, plus the number of warps and the template's
-# two flags (the card builds <true, false> and <false, true>; the walk
-# without the stores always takes exp2f)
+# signature less the stream, plus the number of warps and two flags (the
+# card builds the storing walk with expf and the other with exp2f; the
+# storing walk with exp2f is built here only, for the comparisons); then
+# the walk without the shading (sg_envmap_fwd, exp2f)
 HOST_LOOP = r"""
 #include <algorithm>
 #include <vector>
@@ -128,6 +133,38 @@ extern "C" int render_sg_env_host(
      env, n_pix, hw, k_num, d_num, f0, n_warps);
   return 0;
 }
+
+extern "C" int sg_envmap_fwd_host(const float* axis, const float* lamb,
+                                  const float* weight, const float* dirs,
+                                  float* env, long long n_pix, int k_num,
+                                  int d_num, int n_warps) {
+  std::vector<float4> raw4(Raw::floats(k_num) / 4);
+  std::vector<float4> rec4(k_num * kRecord / 4);
+  float* raw = reinterpret_cast<float*>(raw4.data());
+  float* rec = reinterpret_cast<float*>(rec4.data());
+  const float4* d4 = reinterpret_cast<const float4*>(dirs);
+  for (int w = 0; w < n_warps; ++w) {
+    for (int p = w; p < n_pix; p += n_warps) {
+      std::copy(axis + p * 3 * k_num, axis + (p + 1) * 3 * k_num, raw);
+      std::copy(lamb + p * k_num, lamb + (p + 1) * k_num,
+                raw + Raw::lamb(k_num));
+      std::copy(weight + p * 3 * k_num, weight + (p + 1) * 3 * k_num,
+                raw + Raw::weight(k_num));
+      for (int lane = 0; lane < kWarp; ++lane) {
+        build_records<true>(rec, raw, k_num, lane, kWarp);
+      }
+      for (int c0 = 0; c0 < d_num; c0 += kPassDirs) {
+        for (int lane = 0; lane < kWarp; ++lane) {
+          float4 c[kDirsPerLane];
+          float mix[kDirsPerLane][3];
+          env_lane_mix<true, true>(rec, k_num, d4, d_num, c0, lane, c, mix,
+                                   env + p * 3 * d_num + 3 * c0);
+        }
+      }
+    }
+  }
+  return 0;
+}
 """
 
 # (b, h, w, k, env_height, env_width, warps): 130 pixels on 3 warps take
@@ -140,6 +177,8 @@ CASES = {
     "10x13 K=12 D=60": (1, 10, 13, 12, 6, 10, 3),
     "2x6x7 K=5 D=200": (2, 6, 7, 5, 10, 20, 100),  # two passes, a tail of 72
 }
+# the envmap walk also at a D that is not a multiple of 4 (any D runs)
+ENVMAP_CASES = {**CASES, "10x13 K=12 D=35": (1, 10, 13, 12, 5, 7, 3)}
 FOV, F0 = 57.0, 0.05
 
 
@@ -150,6 +189,14 @@ def render_sg_env_host(tmp_path_factory):
     return build_host(tmp_path_factory, "render_sg_env_host", HOST_LOOP,
                       [p] * 11 + [ctypes.c_longlong, i, i, i, ctypes.c_float,
                                   i, i, i])
+
+
+@pytest.fixture(scope="module")
+def sg_envmap_fwd_host(tmp_path_factory):
+    """The walk without the shading built with g++, as a ctypes function."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    return build_host(tmp_path_factory, "sg_envmap_fwd_host", HOST_LOOP,
+                      [p] * 5 + [ctypes.c_longlong, i, i, i])
 
 
 def host_outputs(fn, args, env_hw, n_warps, store_env=True, exp2=False):
@@ -216,3 +263,33 @@ def test_render_sg_fwd_walk_matches(render_sg_env_host, case, reference):
                                err_msg="diffuse")
     np.testing.assert_allclose(s, np.asarray(want[1]), atol=5e-4,
                                err_msg="specular")
+
+
+@pytest.mark.parametrize("reference", ["plain", "pallas"])
+@pytest.mark.parametrize("case", list(ENVMAP_CASES))
+def test_sg_envmap_fwd_walk_matches(render_sg_env_host, sg_envmap_fwd_host,
+                                    case, reference):
+    """The walk without the shading (``sg_envmap_fwd``); env starts as
+    NaN, so every element must be written."""
+    b, h, w, k, eh, ew, n_warps = ENVMAP_CASES[case]
+    args = make_inputs(b=b, h=h, w=w, k=k, seed=13)
+    lobes = [np.ascontiguousarray(x) for x in args[3:]]
+    d = eh * ew
+    dirs = sg_render._dir_consts(eh, ew, torch.device("cpu")).numpy()
+    env = np.full((b, h, w, d, 3), np.nan, np.float32)
+    err = sg_envmap_fwd_host(*(x.ctypes.data for x in lobes),
+                             dirs.ctypes.data, env.ctypes.data, b * h * w,
+                             k, d, n_warps)
+    assert err == 0
+    assert np.isfinite(env).all()
+    stored = host_outputs(render_sg_env_host, args, (eh, ew), n_warps,
+                          exp2=True)
+    np.testing.assert_array_equal(env, stored[2])
+    if reference == "plain":
+        want = sg_render.sg_envmap_plain(*map(torch.from_numpy, lobes),
+                                         env_height=eh, env_width=ew).numpy()
+    else:
+        want = jsg_render.sg_envmap(*map(jnp.asarray, lobes), env_height=eh,
+                                    env_width=ew, interpret=True)
+    np.testing.assert_allclose(env, np.asarray(want), rtol=2e-5, atol=1e-5,
+                               err_msg="env")
