@@ -41,7 +41,19 @@ Phases, each fatal on failure:
      image 240x320, frozen cascade-0 BRDF nets), both routes from the
      same seeded weights; step 1's losses and confidence-net gradients
      agree, then 20 steps on each route are timed, descend, and launch
-     ``bilateral_blur`` 103 times an image a step on the kernel route.
+     ``bilateral_blur`` 103 times an image a step on the kernel route;
+  7. cascade recipe: the staged training recipe across the cascade
+     hand-off at full width, seeded weights: 20 cascade-0 BRDF steps
+     (B=16, step 1's errors and per-net gradients against a float64 copy
+     on a B=2 slice); the cascade-0 export of that batch on both routes
+     (the BRDF products and the SG tensor bit-equal, diffuse and specular
+     within the serving tolerances, one ``render_sg_fwd`` and one
+     ``sg_envmap_fwd`` launch on the kernel route); the hand-off of the
+     kernel route's products in memory through ``normalize_cascade_pre``
+     into the cascade-1 ``*_pre`` and ``env_pre`` maps; then, as phase 5,
+     the cascade-1 lighting step (B=5, 20 steps a route), as part 1 the
+     cascade-1 BRDF step (B=16, the 17-channel encoder), and as phase 6
+     the cascade-1 bilateral step (B=2, 10 steps a route).
 The second-to-last line of output is the kernels' JSON record, the last
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits non-zero
 before printing any result.
@@ -61,6 +73,10 @@ import time
 import numpy as np
 import torch
 
+from inverserenderingofindoorscene_torch.data.openrooms import (
+    PRE_STEMS,
+    normalize_cascade_pre,
+)
 from inverserenderingofindoorscene_torch.data.synthetic import synthetic_batch
 from inverserenderingofindoorscene_torch.ops import bilateral, build, sg_render
 from inverserenderingofindoorscene_torch.pipeline.bilateral import (
@@ -69,6 +85,7 @@ from inverserenderingofindoorscene_torch.pipeline.bilateral import (
     normalized_guide,
 )
 from inverserenderingofindoorscene_torch.pipeline.brdf import BRDFNets
+from inverserenderingofindoorscene_torch.pipeline.export import export_step
 from inverserenderingofindoorscene_torch.pipeline.inference import (
     InverseRenderer,
     predict_light,
@@ -78,6 +95,7 @@ from inverserenderingofindoorscene_torch.pipeline.inference import (
 from inverserenderingofindoorscene_torch.pipeline.light import LightNets
 from inverserenderingofindoorscene_torch.train.steps import (
     make_bilateral_train_step,
+    make_brdf_train_step,
     make_light_train_step,
 )
 
@@ -90,6 +108,9 @@ TRAIN_B = 5  # the JAX light-training CLI's batch
 TRAIN_LR = 1e-4  # the reference's Adam rate
 N_TRAIN_STEPS = 20
 BS_TRAIN_B = 2  # the JAX bilateral-training CLI's batch
+BRDF_TRAIN_B = 16  # the JAX CLIs' default batch (cli/common.py:34)
+N_BS_C1_STEPS = 10
+BRDF_NETS = ("encoder", "albedo", "normal", "rough", "depth")
 _CSRC = "inverserenderingofindoorscene_torch/ops/csrc/"
 _TPU = "inverserenderingofindoorscene_tpu/ops/sg_render.py:"
 # kernel -> (its source, the TPU kernel it replaces)
@@ -169,6 +190,13 @@ REFINE_TOL = (2e-4, 2e-5)
 # gradients 9.0e-7, from cuDNN's and the upsample backward's reordered
 # sums; the solves are bit-equal)
 BS_STEP1_TOL = {"losses": 1e-5, "grads": 1e-4}
+# BRDF training step 1, f32 against a float64 copy of the nets on a B=2
+# slice of the batch: the four errors as relative differences, each net's
+# gradient (all its parameters together) as a relative L2 distance.  The
+# nets are gated in f32 (ReLU, the heads' clamp of 1.01 tanh): a pixel
+# within rounding of a gate takes its gradient on either side
+# (tests/test_torch_brdf_train.py docstring)
+BRDF_F64_TOL = {"errors": 1e-4, "grads": 1e-3}
 
 
 def log(*args):
@@ -906,7 +934,7 @@ def timed_step(step, batch):
     return metrics, (time.perf_counter() - t0) * 1e3
 
 
-def check_first_step(steps, batch):
+def check_first_step(steps, batch, tag="[training]"):
     """Both routes' loss and gradients on one batch, before any update."""
     out = {}
     for route, step in steps.items():
@@ -923,7 +951,7 @@ def check_first_step(steps, batch):
             for k in ("reconst", "render")}
     dist["grads"] = max(float(torch.linalg.vector_norm(gk[n] - gp[n])
                               / torch.linalg.vector_norm(gp[n])) for n in gp)
-    log("[training] step 1, kernel route vs plain route: "
+    log(f"{tag} step 1, kernel route vs plain route: "
         + ", ".join(f"{k} {v.item():.6g}" for k, v in lk.items())
         + "; relative differences "
         + ", ".join(f"{k} {v:.3e}" for k, v in dist.items())
@@ -931,6 +959,71 @@ def check_first_step(steps, batch):
     for k, tol in STEP1_TOL.items():
         if not dist[k] <= tol:
             raise AssertionError(f"step 1 {k}: {dist[k]} > {tol}")
+
+
+def profile_step(tag, step, batch, row_limit):
+    """One step under torch.profiler: host time, device busy time and
+    idle share, and the top ``row_limit`` ops by device time (none at
+    0)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, ms = timed_step(step, batch)
+    busy_ms = device_busy_ms(prof)
+    log(f"{tag} torch.profiler, one step on the kernel route: {ms:.3f} ms "
+        f"on the host clock, device busy {busy_ms:.3f} ms (idle share "
+        f"{1.0 - busy_ms / ms:.3f})" + (":" if row_limit else ""))
+    if row_limit:
+        log(prof.key_averages().table(sort_by="self_cuda_time_total",
+                                      row_limit=row_limit))
+
+
+def train_light_routes(tag, steps, batch, n_steps, row_limit):
+    """The lighting step on both routes from the same weights: step 1's
+    checks, then ``n_steps`` timed steps a route that descend and launch
+    each training kernel once a step on the kernel route, none on the
+    plain route.  Returns {kernel: launches} of the kernel route's run."""
+    check_first_step(steps, batch, tag)
+    results = {}
+    for route, step in steps.items():
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        totals, times = [], []
+        for _ in range(n_steps):
+            metrics, ms = timed_step(step, batch)
+            times.append(ms)
+            totals.append(float(metrics["total"]))
+            bad = [k for k, v in metrics.items() if not torch.isfinite(v)]
+            if bad:
+                raise AssertionError(f"{route}: non-finite {bad}")
+        launches = read_launches()
+        peak_mib = torch.cuda.max_memory_allocated() / 2**20
+        med, p90 = percentiles(times)
+        log(f"{tag} {route} route, {n_steps} steps: ms/step "
+            f"median {med:.3f} p90 {p90:.3f}; peak device memory "
+            f"{peak_mib:.0f} MiB; total {totals[0]:.6g} -> {totals[-1]:.6g}; "
+            f"launches {launches}")
+        if not min(totals[1:]) < totals[0]:
+            raise AssertionError(f"{route}: total did not fall: {totals}")
+        results[route] = launches
+    want = {"kernels": {**dict.fromkeys(KERNELS, n_steps),
+                        "render_sg_env": 0, "bilateral_blur": 0},
+            "plain": dict.fromkeys(KERNELS, 0)}
+    if results != want:
+        raise AssertionError(f"launches {results}, expected {want}")
+    profile_step(tag, steps["kernels"], batch, row_limit)
+    return {k: v for k, v in results["kernels"].items()
+            if k not in ("render_sg_env", "bilateral_blur")}
+
+
+def light_steps(brdf, light, dev):
+    """The lighting step on each route, from copies of the same weights."""
+    return {route: make_light_train_step(copy.deepcopy(brdf),
+                                         copy.deepcopy(light),
+                                         use_kernels=flag, device=dev,
+                                         lr=TRAIN_LR)
+            for route, flag in (("kernels", True), ("plain", False))}
 
 
 def phase_training(seed, dev):
@@ -947,63 +1040,17 @@ def phase_training(seed, dev):
     brdf = BRDFNets(0, generator=gen)
     light = LightNets(sg_num=SG_NUM, env_rows=ENV_RC[0], env_cols=ENV_RC[1],
                       generator=gen)
-    steps = {route: make_light_train_step(copy.deepcopy(brdf),
-                                          copy.deepcopy(light),
-                                          use_kernels=flag, device=dev,
-                                          lr=TRAIN_LR)
-             for route, flag in (("kernels", True), ("plain", False))}
+    steps = light_steps(brdf, light, dev)
     batch = synthetic_batch(batch=TRAIN_B, im_hw=IM_HW, env_rc=ENV_RC,
                             sg_num=SG_NUM, seed=seed, device=dev)
     h, w = steps["kernels"].light_nets.light_hw
     log(f"[training] B={TRAIN_B}, image {IM_HW[0]}x{IM_HW[1]}, grid "
         f"{ENV_RC[0]}x{ENV_RC[1]}, light input {h}x{w}, K={SG_NUM}, "
         f"lr {TRAIN_LR}: {time.perf_counter() - t0:.1f} s (set-up)")
-    check_first_step(steps, batch)
-
-    results = {}
-    for route, step in steps.items():
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches()
-        totals, times = [], []
-        for _ in range(N_TRAIN_STEPS):
-            metrics, ms = timed_step(step, batch)
-            times.append(ms)
-            totals.append(float(metrics["total"]))
-            bad = [k for k, v in metrics.items() if not torch.isfinite(v)]
-            if bad:
-                raise AssertionError(f"{route}: non-finite {bad}")
-        launches = read_launches()
-        peak_mib = torch.cuda.max_memory_allocated() / 2**20
-        med, p90 = percentiles(times)
-        log(f"[training] {route} route, {N_TRAIN_STEPS} steps: ms/step "
-            f"median {med:.3f} p90 {p90:.3f}; peak device memory "
-            f"{peak_mib:.0f} MiB; total {totals[0]:.6g} -> {totals[-1]:.6g}; "
-            f"launches {launches}")
-        if not min(totals[1:]) < totals[0]:
-            raise AssertionError(f"{route}: total did not fall: {totals}")
-        results[route] = launches
-    want = {"kernels": {**dict.fromkeys(KERNELS, N_TRAIN_STEPS),
-                        "render_sg_env": 0, "bilateral_blur": 0},
-            "plain": dict.fromkeys(KERNELS, 0)}
-    if results != want:
-        raise AssertionError(f"launches {results}, expected {want}")
-
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, ms = timed_step(steps["kernels"], batch)
-    busy_ms = device_busy_ms(prof)
-    log(f"[training] torch.profiler, one step on the kernel route: "
-        f"{ms:.3f} ms on the host clock, device busy {busy_ms:.3f} ms "
-        f"(idle share {1.0 - busy_ms / ms:.3f}):")
-    log(prof.key_averages().table(sort_by="self_cuda_time_total",
-                                  row_limit=25))
-    return {k: v for k, v in results["kernels"].items()
-            if k not in ("render_sg_env", "bilateral_blur")}
+    return train_light_routes("[training]", steps, batch, N_TRAIN_STEPS, 25)
 
 
-def check_first_bs_step(steps, batch):
+def check_first_bs_step(steps, batch, tag="[bilateral training]"):
     """Both routes' bilateral losses and confidence-net gradients on one
     batch, before any update.  Returns the kernel route's vertex counts."""
     out = {}
@@ -1020,7 +1067,7 @@ def check_first_bs_step(steps, batch):
     dist = {k: abs(lk[k].item() / lp[k].item() - 1.0) for k in lp}
     grads = {n: rel_l2(gk[n], gp[n]) for n in gp}
     worst = max(grads, key=grads.get)
-    log("[bilateral training] step 1, kernel route vs plain route: "
+    log(f"{tag} step 1, kernel route vs plain route: "
         + ", ".join(f"{k} {v.item():.6g}" for k, v in lk.items())
         + "; relative differences "
         + ", ".join(f"{k} {v:.3e}" for k, v in dist.items())
@@ -1032,31 +1079,25 @@ def check_first_bs_step(steps, batch):
     return nverts
 
 
-def phase_bilateral_training(seed, dev):
-    """The bilateral train step at full width, both routes from the same
-    weights.  Returns {kernel: launches} of the kernel route's run."""
-    t0 = time.perf_counter()
-    gen = torch.Generator().manual_seed(seed + 3)
-    brdf, bs_nets = BRDFNets(0, generator=gen), BilateralNets(gen)
+def train_bs_routes(tag, brdf, bs_nets, batch, n_steps, row_limit, dev):
+    """The bilateral step on both routes from the same weights: step 1's
+    checks, then ``n_steps`` timed steps a route that descend and launch
+    ``bilateral_blur`` 103 times an image a step on the kernel route.
+    Returns {kernel: launches} of the kernel route's run."""
     steps = {route: make_bilateral_train_step(
                  copy.deepcopy(brdf), copy.deepcopy(bs_nets),
                  use_kernels=flag, device=dev, lr=TRAIN_LR)
              for route, flag in (("kernels", True), ("plain", False))}
-    batch = synthetic_batch(batch=BS_TRAIN_B, im_hw=IM_HW, env_rc=ENV_RC,
-                            sg_num=SG_NUM, seed=seed + 3, device=dev)
-    log(f"[bilateral training] B={BS_TRAIN_B}, image {IM_HW[0]}x{IM_HW[1]}, "
-        f"frozen cascade-0 BRDF nets, lr {TRAIN_LR}: "
-        f"{time.perf_counter() - t0:.1f} s (set-up)")
-    nverts = check_first_bs_step(steps, batch)
-    log(f"[bilateral training] grid vertices per image: {nverts}")
+    nverts = check_first_bs_step(steps, batch, tag)
+    log(f"{tag} grid vertices per image: {nverts}")
 
-    per_step = BS_TRAIN_B * (BLURS_FWD + BLURS_GRAD)
+    per_step = batch["im"].shape[0] * (BLURS_FWD + BLURS_GRAD)
     results = {}
     for route, step in steps.items():
         torch.cuda.reset_peak_memory_stats()
         reset_launches()
         totals, times = [], []
-        for _ in range(N_TRAIN_STEPS):
+        for _ in range(n_steps):
             metrics, ms = timed_step(step, batch)
             times.append(ms)
             totals.append(float(metrics["total"]))
@@ -1067,7 +1108,7 @@ def phase_bilateral_training(seed, dev):
         launches = read_launches()
         peak_mib = torch.cuda.max_memory_allocated() / 2**20
         med, p90 = percentiles(times)
-        log(f"[bilateral training] {route} route, {N_TRAIN_STEPS} steps: "
+        log(f"{tag} {route} route, {n_steps} steps: "
             f"ms/step median {med:.3f} p90 {p90:.3f}; peak device memory "
             f"{peak_mib:.0f} MiB; total {totals[0]:.6g} -> {totals[-1]:.6g} "
             f"(min {min(totals):.6g}); bilateral_blur launches "
@@ -1076,23 +1117,237 @@ def phase_bilateral_training(seed, dev):
             raise AssertionError(f"{route}: total did not fall: {totals}")
         results[route] = launches
     want = {"kernels": {**dict.fromkeys(KERNELS, 0),
-                        "bilateral_blur": per_step * N_TRAIN_STEPS},
+                        "bilateral_blur": per_step * n_steps},
             "plain": dict.fromkeys(KERNELS, 0)}
     if results != want:
         raise AssertionError(f"launches {results}, expected {want}")
-
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, ms = timed_step(steps["kernels"], batch)
-    busy_ms = device_busy_ms(prof)
-    log(f"[bilateral training] torch.profiler, one step on the kernel "
-        f"route: {ms:.3f} ms on the host clock, device busy {busy_ms:.3f} ms "
-        f"(idle share {1.0 - busy_ms / ms:.3f}):")
-    log(prof.key_averages().table(sort_by="self_cuda_time_total",
-                                  row_limit=25))
+    profile_step(tag, steps["kernels"], batch, row_limit)
     return {"bilateral_blur": results["kernels"]["bilateral_blur"]}
+
+
+def phase_bilateral_training(seed, dev):
+    """The bilateral train step at full width, both routes from the same
+    weights.  Returns {kernel: launches} of the kernel route's run."""
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(seed + 3)
+    brdf, bs_nets = BRDFNets(0, generator=gen), BilateralNets(gen)
+    batch = synthetic_batch(batch=BS_TRAIN_B, im_hw=IM_HW, env_rc=ENV_RC,
+                            sg_num=SG_NUM, seed=seed + 3, device=dev)
+    log(f"[bilateral training] B={BS_TRAIN_B}, image {IM_HW[0]}x{IM_HW[1]}, "
+        f"frozen cascade-0 BRDF nets, lr {TRAIN_LR}: "
+        f"{time.perf_counter() - t0:.1f} s (set-up)")
+    return train_bs_routes("[bilateral training]", brdf, bs_nets, batch,
+                           N_TRAIN_STEPS, 25, dev)
+
+
+def check_brdf_f64(tag, nets, batch, dev):
+    """Step 1 of BRDF training on a B=2 slice of the batch, in f32 and in
+    float64 (a ``.double()`` copy of the nets and of the slice), before
+    any update: the four errors and each net's gradient."""
+    sl = {k: v[:2] for k, v in batch.items()}
+    out = {}
+    for name, dtype in (("f32", torch.float32), ("f64", torch.float64)):
+        step = make_brdf_train_step(copy.deepcopy(nets).to(dtype),
+                                    device=dev)
+        total, errors = step.loss({k: v.to(dtype) for k, v in sl.items()})
+        total.backward()
+        grads = {n: torch.cat([p.grad.double().flatten() for pn, p in
+                               step.brdf_nets.named_parameters()
+                               if pn.startswith(n + ".")])
+                 for n in BRDF_NETS}
+        out[name] = ({k: v.item() for k, v in errors.items()}, grads)
+        del step
+    (e32, g32), (e64, g64) = out["f32"], out["f64"]
+    dist = {k: abs(e32[k] / e64[k] - 1.0) for k in e64}
+    grads = {n: rel_l2(g32[n], g64[n]) for n in BRDF_NETS}
+    log(f"{tag} step 1 on a B=2 slice, f32 vs float64: errors "
+        + ", ".join(f"{k} {v:.6g}" for k, v in e32.items())
+        + "; relative differences "
+        + ", ".join(f"{k} {v:.3e}" for k, v in dist.items())
+        + "; gradient relative L2 "
+        + ", ".join(f"{k} {v:.3e}" for k, v in grads.items()))
+    if not max(dist.values()) <= BRDF_F64_TOL["errors"]:
+        raise AssertionError(f"{tag} step 1 errors vs float64: {dist}")
+    if not max(grads.values()) <= BRDF_F64_TOL["grads"]:
+        raise AssertionError(f"{tag} step 1 gradients vs float64: {grads}")
+
+
+def brdf_conv_flops(nets, batch):
+    """The convolution FLOPs of one BRDF step on ``batch`` (forward and
+    backward; torch.utils.flop_counter on a copy of the nets on the meta
+    device)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    meta = copy.deepcopy(nets).to("meta")
+    b, h, w, _ = batch["im"].shape
+    im = torch.zeros(b, 3, h, w, device="meta")
+    inp = torch.zeros(b, meta.encoder.conv1.in_channels, h, w, device="meta")
+    with FlopCounterMode(display=False) as counter:
+        sum(v.sum() for v in meta(im, inp).values()).backward()
+    return counter.get_total_flops()
+
+
+def train_brdf(tag, nets, batch, dev, row_limit=None):
+    """BRDF training at full width: step 1 against float64, then
+    N_TRAIN_STEPS steps that descend and launch no kernel.  Step 1
+    autotunes the convolutions and is timed apart; the median, p90 and
+    peak memory are of the steps after it.  Returns the trained nets."""
+    check_brdf_f64(tag, nets, batch, dev)
+    step = make_brdf_train_step(nets, device=dev, lr=TRAIN_LR)
+    reset_launches()
+    metrics, first_ms = timed_step(step, batch)
+    totals, times = [float(metrics["total"])], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(N_TRAIN_STEPS - 1):
+        metrics, ms = timed_step(step, batch)
+        times.append(ms)
+        totals.append(float(metrics["total"]))
+        bad = [k for k, v in metrics.items() if not torch.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{tag}: non-finite {bad}")
+    launches = read_launches()
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    med, p90 = percentiles(times)
+    flops = brdf_conv_flops(nets, batch)
+    log(f"{tag} {N_TRAIN_STEPS} steps: step 1 (autotuning) {first_ms:.1f} "
+        f"ms, then ms/step median {med:.3f} p90 {p90:.3f}; peak device "
+        f"memory {peak_mib:.0f} MiB; total {totals[0]:.6g} -> "
+        f"{totals[-1]:.6g}; launches {launches}; convolutions "
+        f"{flops / 1e12:.3f} TFLOP a step, {flops / med / 1e9:.1f} TFLOP/s "
+        "at the median")
+    if not min(totals[1:]) < totals[0]:
+        raise AssertionError(f"{tag}: total did not fall: {totals}")
+    if launches != dict.fromkeys(KERNELS, 0):
+        raise AssertionError(f"{tag}: launches {launches}, expected none")
+    if row_limit:
+        profile_step(tag, step, batch, row_limit)
+    return step.brdf_nets
+
+
+def check_export(products):
+    """The two routes' products of one batch: the BRDF maps and the SG
+    tensor bit-equal (no kernel runs before them), diffuse and specular
+    within the serving tolerances."""
+    (pk, lk), (pp, lp) = products["kernels"], products["plain"]
+    for k in ("albedo", "normal", "rough", "depth", "env"):
+        if not torch.equal(pk[k], pp[k]):
+            raise AssertionError(f"export {k} differs between routes")
+    errs = {"diffuse": check_close("export diffuse", pk["diffuse"],
+                                   pp["diffuse"], *CHAIN_TOL["diffuse"]),
+            "specular": check_rel_l1("export specular", pk["specular"],
+                                     pp["specular"], SPECULAR_REL_L1)}
+    for k, v in pk.items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"export {k}: non-finite")
+    log("[cascade] export, kernel route vs plain route: BRDF maps and env "
+        "bit-equal; max abs err "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + "; losses " + ", ".join(f"{k} {v.item():.6g}"
+                                  for k, v in lk.items()))
+
+
+def export_routes(brdf, light, batch):
+    """export_step on each route; each compared call launches one
+    render_sg_fwd and one sg_envmap_fwd on the kernel route, none on the
+    plain route.  Returns ({route: (products, losses)}, {kernel:
+    launches} of the kernel route's compared call)."""
+    products, counted = {}, {}
+    for route, flag in (("kernels", True), ("plain", False)):
+        export_step(brdf, light, batch, use_kernels=flag)  # autotuning
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        products[route] = export_step(brdf, light, batch, use_kernels=flag)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = read_launches()
+        want = dict.fromkeys(KERNELS, 0)
+        if flag:
+            want.update(render_sg_fwd=1, sg_envmap_fwd=1)
+        if launches != want:
+            raise AssertionError(f"export {route}: launches {launches}, "
+                                 f"expected {want}")
+        counted[route] = launches
+        log(f"[cascade] export B={batch['im'].shape[0]}, {route} route: "
+            f"{ms:.3f} ms; launches {launches}")
+    check_export(products)
+    return products, counted["kernels"]
+
+
+def hand_off(products, batch):
+    """The cascade-1 batch: ``batch`` with the previous cascade's maps
+    from the exported products (``normalize_cascade_pre``, the reader's
+    arithmetic, on the host) and ``env_pre``, the SG tensor."""
+    b = batch["im"].shape[0]
+    pre = [normalize_cascade_pre({
+        key: products[key[:-len("_pre")]][n].permute(2, 0, 1).cpu().numpy()
+        for key in PRE_STEMS}) for n in range(b)]
+    dev = batch["im"].device
+    c1 = dict(batch)
+    for key in PRE_STEMS:
+        c1[key] = torch.as_tensor(np.stack([p[key] for p in pre]),
+                                  device=dev)
+    c1["env_pre"] = products["env"].contiguous()
+    for key in (*PRE_STEMS, "env_pre"):
+        if not torch.isfinite(c1[key]).all():
+            raise AssertionError(f"hand-off {key}: non-finite")
+    means = {k: c1[k].reshape(b, -1).mean(dim=1)
+             for k in ("albedo_pre", "depth_pre")}
+    for k, m in means.items():
+        check_close(f"hand-off {k} mean", m, torch.full_like(m, 1 / 3),
+                    1e-4, 0.0)
+    try:
+        import h5py
+        h5 = f"h5py {h5py.__version__} imports"
+    except ImportError:
+        h5 = "h5py does not import"
+    log(f"[cascade] hand-off in memory: "
+        + ", ".join(f"{k} {tuple(c1[k].shape)}" for k in (*PRE_STEMS,
+                                                          "env_pre"))
+        + "; per-image means of albedo_pre / depth_pre "
+        + " / ".join(f"{float(m.min()):.7f}-{float(m.max()):.7f}"
+                     for m in means.values())
+        + f"; files are not written here ({h5})")
+    return c1
+
+
+def phase_cascade(seed, dev):
+    """The staged recipe across the cascade hand-off at full width.
+    Returns {kernel: launches} of the kernel routes' runs."""
+    torch.backends.cudnn.benchmark = True
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(seed + 4)
+    brdf0 = BRDFNets(0, generator=gen)
+    light0 = LightNets(sg_num=SG_NUM, env_rows=ENV_RC[0], env_cols=ENV_RC[1],
+                       generator=gen)
+    brdf1 = BRDFNets(1, generator=gen)
+    light1 = LightNets(sg_num=SG_NUM, cascade_level=1, env_rows=ENV_RC[0],
+                       env_cols=ENV_RC[1], generator=gen)
+    bs_nets = BilateralNets(gen)
+    batch = synthetic_batch(batch=BRDF_TRAIN_B, im_hw=IM_HW, env_rc=ENV_RC,
+                            sg_num=SG_NUM, seed=seed + 4, device=dev)
+    log(f"[cascade] B={BRDF_TRAIN_B}, image {IM_HW[0]}x{IM_HW[1]}, grid "
+        f"{ENV_RC[0]}x{ENV_RC[1]}, K={SG_NUM}, lr {TRAIN_LR}, "
+        f"cudnn.benchmark on: {time.perf_counter() - t0:.1f} s (set-up)")
+
+    brdf0 = train_brdf("[cascade c0 brdf]", brdf0, batch, dev, row_limit=12)
+    products, launches = export_routes(brdf0, light0.to(dev), batch)
+    c1 = hand_off(products["kernels"][0], batch)
+    del products
+
+    def head(n):
+        return {k: v[:n] for k, v in c1.items()}
+
+    runs = [train_light_routes("[cascade c1 light]",
+                               light_steps(brdf1, light1, dev),
+                               head(TRAIN_B), N_TRAIN_STEPS, 12)]
+    train_brdf("[cascade c1 brdf]", copy.deepcopy(brdf1), c1, dev)
+    runs.append(train_bs_routes("[cascade c1 bs]", brdf1, bs_nets,
+                                head(BS_TRAIN_B), N_BS_C1_STEPS, 0, dev))
+    for run in runs:
+        for name, n in run.items():
+            launches[name] += n
+    return launches
 
 
 def main(argv=None):
@@ -1110,9 +1365,13 @@ def main(argv=None):
     launches = phase_serving(args.seed)
     launches.update(phase_training(args.seed, dev))
     # bilateral_blur's count: the serving run's and the bilateral training
-    # run's together
+    # runs' together
     launches["bilateral_blur"] += phase_bilateral_training(
         args.seed, dev)["bilateral_blur"]
+    # the cascade recipe's launches: the export's, the cascade-1 light and
+    # bilateral steps'
+    for name, n in phase_cascade(args.seed, dev).items():
+        launches[name] += n
     for name, record in records.items():
         record["launches"] = launches[name]
     log(smi)

@@ -2,7 +2,8 @@
 
 Albedo, depth and lighting are only recoverable up to a global scale from a
 single image, so every loss first fits a per-image scalar (or a diffuse /
-specular pair) in closed form.  Gradients do not flow through the fitted
+specular pair) in closed form, or normalizes albedo and depth to a mean of
+1/3 (:func:`mean_normalize`).  Gradients do not flow through the fitted
 coefficients: every ``stop_gradient`` of the JAX package's ``core/scale.py``
 is a ``.detach()`` here.  The functions only sum per batch element, so they
 take any layout as long as all arguments share it.
@@ -11,6 +12,13 @@ take any layout as long as all arguments share it.
 from __future__ import annotations
 
 import torch
+
+
+def mean_normalize(x: torch.Tensor) -> torch.Tensor:
+    """x / max(mean(x), 1e-10) / 3 per batch element (any layout)."""
+    b = x.shape[0]
+    m = torch.clamp(torch.mean(x.reshape(b, -1), dim=1), min=1e-10)
+    return x / m.reshape((b,) + (1,) * (x.dim() - 1)) / 3.0
 
 
 def ls_regress(pred: torch.Tensor, gt: torch.Tensor,

@@ -1,9 +1,10 @@
 """Cascade BRDF stack: the encoder and its four decoder heads as one module,
 and its forward and masked errors on a training batch.
 
-The counterpart of the JAX package's ``pipeline/brdf.py``; here the bundle
-owns its weights.  Submodule names (``encoder``, ``albedo``, ``normal``,
-``rough``, ``depth``) prefix the reference's per-network state-dict names.
+The counterpart of the JAX package's ``pipeline/brdf.py``, at both cascade
+levels; here the bundle owns its weights.  Submodule names (``encoder``,
+``albedo``, ``normal``, ``rough``, ``depth``) prefix the reference's
+per-network state-dict names.
 Batches and predictions are NHWC, as in the JAX package; the networks run
 in NCHW.
 """
@@ -15,7 +16,16 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from inverserenderingofindoorscene_torch.core.imageops import to_nchw, to_nhwc
+from inverserenderingofindoorscene_torch.core.imageops import (
+    adaptive_avg_pool,
+    resize_bilinear,
+    to_nchw,
+    to_nhwc,
+)
+from inverserenderingofindoorscene_torch.core.scale import (
+    ls_regress_diff_spec,
+    mean_normalize,
+)
 from inverserenderingofindoorscene_torch.losses.masked import brdf_errors
 from inverserenderingofindoorscene_torch.models.mgnet import (
     Decoder,
@@ -51,17 +61,55 @@ class BRDFNets(nn.Module):
         return {name: getattr(self, name)(im, feats) for name in HEADS}
 
 
+def prepare_cascade_input(batch: dict, im_hw) -> torch.Tensor:
+    """The 17-channel encoder input of cascade >= 1, NHWC [B,H,W,17]:
+    im, albedo_pre, normal_pre, rough_pre, depth_pre, diffuse_pre,
+    specular_pre.
+
+    The ``*_pre`` maps (NHWC, at the lighting grid or at image size) are
+    bilinearly upsampled where they are smaller than ``im_hw``; the
+    diffuse/specular pair is first fitted onto the image pooled to its
+    own size (:func:`ls_regress_diff_spec` on the detached pair); albedo
+    and depth are mean-normalized to 1/3."""
+    h, w = im_hw
+    im = to_nchw(batch["im"])
+
+    def pre(key):
+        return to_nchw(batch[key])
+
+    def up(x):
+        if x.shape[2] < h or x.shape[3] < w:
+            return resize_bilinear(x, (h, w))
+        return x
+
+    diffuse, specular = pre("diffuse_pre"), pre("specular_pre")
+    diffuse, specular = ls_regress_diff_spec(
+        diffuse.detach(), specular.detach(),
+        adaptive_avg_pool(im, diffuse.shape[2:]), diffuse, specular)
+    return to_nhwc(torch.cat([
+        im,
+        mean_normalize(up(pre("albedo_pre"))),
+        up(pre("normal_pre")),
+        up(pre("rough_pre")),
+        mean_normalize(up(pre("depth_pre"))),
+        up(diffuse),
+        up(specular),
+    ], dim=1))
+
+
 def brdf_forward(nets: BRDFNets, batch: dict) -> dict:
     """Encoder + 4 heads on ``batch["im"]`` [B,H,W,3]; NHWC preds.
 
-    albedo and depth are mapped from the tanh range to [0,1] with
-    0.5(x+1); normal is unit, rough in [-1,1].  Cascade 0 only: the
-    cascade-1 input assembly is not ported yet."""
-    if nets.cascade_level != 0:
-        raise NotImplementedError("brdf_forward: the cascade-1 input "
-                                  "(prepare_cascade_input) is not ported")
+    The encoder sees ``im`` at cascade 0 and the 17 channels of
+    :func:`prepare_cascade_input` at cascade >= 1; the decoders see
+    ``im``.  albedo and depth are mapped from the tanh range to [0,1]
+    with 0.5(x+1); normal is unit, rough in [-1,1]."""
     im = to_nchw(batch["im"])
-    out = nets(im, im)
+    if nets.cascade_level == 0:
+        inp = im
+    else:
+        inp = to_nchw(prepare_cascade_input(batch, im.shape[2:]))
+    out = nets(im, inp)
     preds = {
         "albedo": 0.5 * (out["albedo"] + 1.0),
         "normal": out["normal"],

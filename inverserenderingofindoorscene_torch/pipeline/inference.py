@@ -30,7 +30,10 @@ from inverserenderingofindoorscene_torch.core.render_layer import (
     RenderLayer,
     pool_nhwc,
 )
-from inverserenderingofindoorscene_torch.core.scale import ls_regress_diff_spec
+from inverserenderingofindoorscene_torch.core.scale import (
+    ls_regress_diff_spec,
+    mean_normalize,
+)
 from inverserenderingofindoorscene_torch.device import resolve_device
 from inverserenderingofindoorscene_torch.ops.sg_render import render_sg_env
 from inverserenderingofindoorscene_torch.pipeline.bilateral import (
@@ -40,7 +43,6 @@ from inverserenderingofindoorscene_torch.pipeline.bilateral import (
 )
 from inverserenderingofindoorscene_torch.pipeline.light import (
     light_input_from_preds,
-    mean_normalize,
 )
 
 

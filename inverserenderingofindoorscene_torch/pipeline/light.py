@@ -3,8 +3,8 @@ module, the assembly of the light-encoder input, and the forward and
 losses of lighting training.
 
 The counterpart of the JAX package's ``pipeline/light.py`` (``LightNets``,
-``mean_normalize``, ``light_input_from_preds``, ``light_forward``,
-``light_step``).  The cascade-1 light step is not ported yet.
+``light_input_from_preds``, ``light_forward``, ``light_step``), at both
+cascade levels; its ``mean_normalize`` is ``core/scale.py``'s.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ from inverserenderingofindoorscene_torch.core.render_layer import (
     RenderLayer,
     pool_nhwc,
 )
+from inverserenderingofindoorscene_torch.core.scale import mean_normalize
 from inverserenderingofindoorscene_torch.losses.masked import (
     envmap_reconst_error,
     render_error,
@@ -75,13 +76,6 @@ class LightNets(nn.Module):
         Returns NCHW decoder outputs keyed axis / lamb / weight."""
         feats = self.encoder(inp, env_pre)
         return {name: getattr(self, name)(feats, env_hw) for name in SG_HEADS}
-
-
-def mean_normalize(x: torch.Tensor) -> torch.Tensor:
-    """x / max(mean(x), 1e-10) / 3 per batch element (any layout)."""
-    b = x.shape[0]
-    m = torch.clamp(torch.mean(x.reshape(b, -1), dim=1), min=1e-10)
-    return x / m.reshape((b,) + (1,) * (x.dim() - 1)) / 3.0
 
 
 def light_input_from_preds(im: torch.Tensor, preds: dict,
@@ -136,13 +130,15 @@ def light_step(brdf_nets, light_nets: LightNets, batch: dict,
     """The BRDF + light forward and the losses of lighting training.
 
     batch: NHWC tensors im/albedo/normal/rough/depth/seg_brdf/seg_all
-    (image resolution), env_gt [B,R,C,D,3] and env_ind [B,1].  The BRDF
+    (image resolution), env_gt [B,R,C,D,3] and env_ind [B,1], and at
+    cascade >= 1 the previous cascade's ``*_pre`` maps and ``env_pre``
+    [B,R,C,7K] (the light encoder's extra input).  The BRDF
     stack is frozen: it runs under ``torch.no_grad()`` and its four errors
     are reported only.  ``use_kernels`` mirrors the JAX package's
     ``use_pallas``: the SG decode of the reconstruction loss and the
     decode + shading of the render loss go through ``ops.sg_render``'s
     ``sg_envmap`` and ``render_sg`` (the CUDA kernels on CUDA tensors)
-    instead of ``sg_to_envmap`` + ``RenderLayer``.  Cascade 0 only.
+    instead of ``sg_to_envmap`` + ``RenderLayer``.
 
     Returns (losses, aux): losses albedo/normal/rough/depth/reconst/render.
     """
@@ -153,7 +149,8 @@ def light_step(brdf_nets, light_nets: LightNets, batch: dict,
     preds["depth"] = mean_normalize(preds["depth"])
 
     im = batch["im"]
-    sg_out = light_forward(light_nets, im, preds)
+    env_pre = batch["env_pre"] if light_nets.cascade_level > 0 else None
+    sg_out = light_forward(light_nets, im, preds, env_pre)
     r, c = light_nets.env_rows, light_nets.env_cols
     eh, ew = light_nets.env_height, light_nets.env_width
     im_small = pool_nhwc(im, (r, c))

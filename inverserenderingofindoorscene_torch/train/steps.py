@@ -5,8 +5,8 @@ trains each stage with Adam(lr=1e-4, betas=(0.5, 0.999)) and halves the
 rate every 10 epochs; :func:`reference_adam` is that optimizer with the
 halving as a per-step schedule.  A step here owns its modules and its
 optimizer and updates them in place (the JAX step is a pure function of
-a ``TrainState``).  Ported: the lighting stage at cascade 0 and the
-bilateral stage.
+a ``TrainState``).  Ported: the BRDF, lighting and bilateral stages, at
+either cascade level (the modules carry their level).
 """
 
 from __future__ import annotations
@@ -20,8 +20,13 @@ from inverserenderingofindoorscene_torch.pipeline.bilateral import (
     bilateral_step,
     bilateral_total_error,
 )
+from inverserenderingofindoorscene_torch.pipeline.brdf import (
+    brdf_step,
+    brdf_total_error,
+)
 from inverserenderingofindoorscene_torch.pipeline.light import light_step
 from inverserenderingofindoorscene_torch.utils.weights import (
+    brdf_adam_state_dict,
     light_adam_state_dict,
 )
 
@@ -55,6 +60,51 @@ def position_schedule(scheduler, count: int) -> None:
                                  scheduler.base_lrs, scheduler.lr_lambdas):
         group["lr"] = base * rate(count)
     scheduler._last_lr = [g["lr"] for g in scheduler.optimizer.param_groups]
+
+
+class BRDFTrainStep:
+    """The BRDF-training step of trainBRDF: Adam on the encoder and the
+    four decoders, loss = 4 albedo_w albedo + normal_w normal + rough_w
+    rough + depth_w depth.  The module moves to ``device`` (``None`` means
+    CUDA) in place.
+
+    Calling it with a batch (NHWC tensors, moved to the step's device;
+    the ``*_pre`` maps too at cascade >= 1) takes one step and returns the
+    metrics: the four errors and ``total``, as detached scalars.
+    :meth:`loss` computes (total, errors) without the update."""
+
+    def __init__(self, brdf_nets, albedo_w: float = 1.5,
+                 normal_w: float = 1.0, rough_w: float = 0.5,
+                 depth_w: float = 0.5, device=None, lr: float = 1e-4,
+                 epoch_decay_steps: Optional[int] = None):
+        self.device = resolve_device(device)
+        self.brdf_nets = brdf_nets.to(self.device)
+        self.weights = (albedo_w, normal_w, rough_w, depth_w)
+        self.optimizer, self.scheduler = reference_adam(
+            self.brdf_nets.parameters(), lr, epoch_decay_steps)
+
+    def loss(self, batch: dict):
+        batch = {k: v.to(self.device) for k, v in batch.items()}
+        _, errors = brdf_step(self.brdf_nets, batch)
+        return brdf_total_error(errors, *self.weights), errors
+
+    def load_optax_state(self, mu: dict, nu: dict, count: int) -> None:
+        """Continue from an optax Adam state of JAX ``BRDFNets`` params
+        (:func:`brdf_adam_state_dict`), the LR schedule put at ``count``."""
+        self.optimizer.load_state_dict(brdf_adam_state_dict(
+            self.optimizer, self.brdf_nets, mu, nu, count))
+        position_schedule(self.scheduler, count)
+
+    def __call__(self, batch: dict) -> dict:
+        self.optimizer.zero_grad(set_to_none=True)
+        total, errors = self.loss(batch)
+        total.backward()
+        self.optimizer.step()
+        if self.scheduler is not None:
+            self.scheduler.step()
+        metrics = {k: v.detach() for k, v in errors.items()}
+        metrics["total"] = total.detach()
+        return metrics
 
 
 class LightTrainStep:
@@ -159,5 +209,6 @@ class BilateralTrainStep:
 
 
 # the JAX package's names: a call builds the step
+make_brdf_train_step = BRDFTrainStep
 make_light_train_step = LightTrainStep
 make_bilateral_train_step = BilateralTrainStep

@@ -14,8 +14,9 @@ params)``), become ``state_dict``s of :class:`BRDFNets` / :class:`LightNets` /
 
 Every flax leaf maps to exactly one key, and an unknown layer raises, so
 the result loads with ``load_state_dict(strict=True)``.  An optax Adam
-state of the light params becomes a ``torch.optim.Adam`` state dict
-(:func:`light_adam_state_dict`).  numpy only: the port stays free of JAX.
+state of the BRDF or light params becomes a ``torch.optim.Adam`` state
+dict (:func:`brdf_adam_state_dict`, :func:`light_adam_state_dict`).  numpy
+only: the port stays free of JAX.
 """
 
 from __future__ import annotations
@@ -81,7 +82,10 @@ def module_state_dict(flax_tree: dict, names: dict, prefix: str = "") -> dict:
 
 
 def brdf_state_dict(params: dict) -> dict:
-    """JAX ``BRDFNets`` params -> port ``BRDFNets`` state dict."""
+    """JAX ``BRDFNets`` params -> port ``BRDFNets`` state dict (either
+    cascade level: the cascade-1 encoder only has a wider ``conv1``).  Any
+    tree shaped like the params (gradients, Adam moments) converts the
+    same way."""
     sd = module_state_dict(params["encoder"], ENCODER_NAMES, "encoder.")
     for head in ("albedo", "normal", "rough", "depth"):
         sd.update(module_state_dict(params[head], DECODER_NAMES, f"{head}."))
@@ -110,21 +114,21 @@ def bilateral_state_dict(params: dict) -> dict:
     return sd
 
 
-def light_adam_state_dict(optimizer: torch.optim.Adam, module, mu: dict,
-                          nu: dict, count: int) -> dict:
-    """An optax Adam state of JAX ``LightNets`` params -> the
-    ``state_dict`` of ``optimizer``, a ``torch.optim.Adam`` over
-    ``module``'s (a port ``LightNets``) parameters.
+def adam_state_dict(optimizer: torch.optim.Adam, module, convert, mu: dict,
+                    nu: dict, count: int) -> dict:
+    """An optax Adam state of a JAX param tree -> the ``state_dict`` of
+    ``optimizer``, a ``torch.optim.Adam`` over ``module``'s parameters.
 
-    ``mu`` and ``nu`` are optax's first and second moments as numpy trees
-    shaped like the params, ``count`` its step count.  The moments are
-    elementwise, so they take the params' own layout change (HWIO ->
-    OIHW).  optax and torch apply the same update from these (bias
-    correction by the count, eps outside the square root), so a JAX run
-    resumed from its ``TrainState`` continues in the port: load the
-    params with :func:`light_state_dict` and this with
+    ``convert`` is the tree's state-dict converter (:func:`brdf_state_dict`,
+    :func:`light_state_dict`).  ``mu`` and ``nu`` are optax's first and
+    second moments as numpy trees shaped like the params, ``count`` its
+    step count.  The moments are elementwise, so they take the params' own
+    layout change (HWIO -> OIHW).  optax and torch apply the same update
+    from these (bias correction by the count, eps outside the square
+    root), so a JAX run resumed from its ``TrainState`` continues in the
+    port: load the params with ``convert`` and this with
     ``optimizer.load_state_dict``."""
-    moments = (light_state_dict(mu), light_state_dict(nu))
+    moments = (convert(mu), convert(nu))
     name_of = {id(p): n for n, p in module.named_parameters()}
     sd = optimizer.state_dict()
     state, index = {}, 0
@@ -141,3 +145,17 @@ def light_adam_state_dict(optimizer: torch.optim.Adam, module, mu: dict,
         raise ValueError(f"{len(moments[0])} moments for {index} parameters")
     sd["state"] = state
     return sd
+
+
+def light_adam_state_dict(optimizer: torch.optim.Adam, module, mu: dict,
+                          nu: dict, count: int) -> dict:
+    """:func:`adam_state_dict` of JAX ``LightNets`` params, for an Adam
+    over a port ``LightNets``."""
+    return adam_state_dict(optimizer, module, light_state_dict, mu, nu, count)
+
+
+def brdf_adam_state_dict(optimizer: torch.optim.Adam, module, mu: dict,
+                         nu: dict, count: int) -> dict:
+    """:func:`adam_state_dict` of JAX ``BRDFNets`` params, for an Adam
+    over a port ``BRDFNets``."""
+    return adam_state_dict(optimizer, module, brdf_state_dict, mu, nu, count)
