@@ -53,7 +53,20 @@ Phases, each fatal on failure:
      into the cascade-1 ``*_pre`` and ``env_pre`` maps; then, as phase 5,
      the cascade-1 lighting step (B=5, 20 steps a route), as part 1 the
      cascade-1 BRDF step (B=16, the 17-channel encoder), and as phase 6
-     the cascade-1 bilateral step (B=2, 10 steps a route).
+     the cascade-1 bilateral step (B=2, 10 steps a route);
+  8. fine-tunes: the IIW and NYU fine-tunes at full width (B=16, IIW
+     batches of 800 rows a kind in the loader's format, NYU ground truth
+     at 240x320, both from the seed), seeded weights, 10 cycles each of
+     the synthetic BRDF step (phase 7's batch) and the real-data step on
+     one Adam, at cascade 0 (no kernel) and at cascade 1, where the
+     frozen cascade-0 stack of phase 7 synthesizes the ``*_pre`` maps
+     every cycle (one ``render_sg_fwd`` launch); step 1 of each real-data
+     step against a float64 copy on a B=2 slice; the synthesis on both
+     routes (the BRDF maps and ``env_pre`` bit-equal, diffuse and
+     specular within the serving tolerances, the fit's scales logged);
+     WHDR against the batch's judgements, normal angle and si-log depth
+     RMSE against the NYU ground truth, before and after the cycles
+     (random-weight numbers, held only to their ranges).
 The second-to-last line of output is the kernels' JSON record, the last
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits non-zero
 before printing any result.
@@ -77,26 +90,51 @@ from inverserenderingofindoorscene_torch.data.openrooms import (
     PRE_STEMS,
     normalize_cascade_pre,
 )
-from inverserenderingofindoorscene_torch.data.synthetic import synthetic_batch
+from inverserenderingofindoorscene_torch.core import sg
+from inverserenderingofindoorscene_torch.core.render_layer import pool_nhwc
+from inverserenderingofindoorscene_torch.core.scale import mean_normalize
+from inverserenderingofindoorscene_torch.data.synthetic import (
+    synthetic_batch,
+    synthetic_iiw_batch,
+    synthetic_nyu_batch,
+)
+from inverserenderingofindoorscene_torch.eval.metrics import (
+    compute_whdr,
+    normal_angle_error,
+    si_log_depth_rmse,
+)
 from inverserenderingofindoorscene_torch.ops import bilateral, build, sg_render
 from inverserenderingofindoorscene_torch.pipeline.bilateral import (
     BS_MODES,
     BilateralNets,
     normalized_guide,
 )
-from inverserenderingofindoorscene_torch.pipeline.brdf import BRDFNets
+from inverserenderingofindoorscene_torch.pipeline.brdf import (
+    BRDFNets,
+    brdf_forward,
+)
 from inverserenderingofindoorscene_torch.pipeline.export import export_step
+from inverserenderingofindoorscene_torch.pipeline.finetune import (
+    PRE_KEYS,
+    nyu_step,
+    synthesize_pre,
+)
 from inverserenderingofindoorscene_torch.pipeline.inference import (
     InverseRenderer,
     predict_light,
     predict_light_core,
     refine_bs,
 )
-from inverserenderingofindoorscene_torch.pipeline.light import LightNets
+from inverserenderingofindoorscene_torch.pipeline.light import (
+    LightNets,
+    light_forward,
+)
 from inverserenderingofindoorscene_torch.train.steps import (
     make_bilateral_train_step,
     make_brdf_train_step,
+    make_iiw_train_step,
     make_light_train_step,
+    make_nyu_train_step,
 )
 
 IM_HW = (240, 320)
@@ -109,6 +147,8 @@ TRAIN_LR = 1e-4  # the reference's Adam rate
 N_TRAIN_STEPS = 20
 BS_TRAIN_B = 2  # the JAX bilateral-training CLI's batch
 BRDF_TRAIN_B = 16  # the JAX CLIs' default batch (cli/common.py:34)
+IIW_MAX_NUM = 800  # the IIW loader's rows a kind (data/iiw.py:25)
+N_FT_CYCLES = 10
 N_BS_C1_STEPS = 10
 BRDF_NETS = ("encoder", "albedo", "normal", "rough", "depth")
 _CSRC = "inverserenderingofindoorscene_torch/ops/csrc/"
@@ -197,6 +237,15 @@ BS_STEP1_TOL = {"losses": 1e-5, "grads": 1e-4}
 # within rounding of a gate takes its gradient on either side
 # (tests/test_torch_brdf_train.py docstring)
 BRDF_F64_TOL = {"errors": 1e-4, "grads": 1e-3}
+# the same check of a fine-tune step (phase 8).  At cascade 1 its inputs
+# come from phase 7's c0 stack, whose f32 training differs in its last
+# bits between runs (cuDNN's autotuned algorithms), so which pixels sit
+# within rounding of a gate differs too: on the H100 the c1 encoder's
+# gradient was 1.9e-6 to 1.0e-3 from float64 over six runs (IIW) and
+# 1.1e-5 to 8.4e-4 over five (NYU), the cascade-0 ones (the same inputs
+# every run) at most 2.4e-5.  Both precisions run the same code: this bounds f32
+# conditioning; the CPU tests hold the math against the JAX package.
+FINETUNE_F64_TOL = {"errors": 1e-4, "grads": 5e-3}
 
 
 def log(*args):
@@ -279,7 +328,22 @@ def phase_device():
         f"cudnn {torch.backends.cudnn.allow_tf32}; set both False")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    log("[device] image libraries for the data loaders (a probe, fails "
+        "nothing): " + ", ".join(probe_import(m) for m in ("PIL", "cv2",
+                                                             "h5py")))
     return smi
+
+
+def probe_import(name):
+    """Whether ``name`` imports, in a child interpreter: the libraries'
+    native code stays out of the process that is measured."""
+    out = subprocess.run(
+        [sys.executable, "-c", f"import {name}; "
+         f"print(getattr({name}, '__version__', '?'))"],
+        capture_output=True, text=True, timeout=120)
+    if out.returncode:
+        return f"{name} does not import"
+    return f"{name} {out.stdout.strip()} imports"
 
 
 def phase_build():
@@ -586,18 +650,19 @@ def check_bilateral_blur(grid, c, rng):
     return timings(fns)
 
 
-def device_ms(fn, n=50, tries=3):
+def device_ms(fn, n=50, tries=10):
     """Device time of one call of fn: the union of its kernels' intervals
     in a torch.profiler trace of n calls, over n.  For a kernel of a few
     microseconds, CUDA events around one call time the host's launch
     path instead (the device idles between the two events).  A trace
-    that holds no device interval at all (seen once, for a 1.4 us kernel)
-    is taken again; after `tries` such traces the measurement fails."""
+    that holds no device interval at all (seen for the 1.4-2 us blur,
+    three times in a row once) is logged and taken again; after `tries`
+    such traces the measurement fails."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    for i in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(n):
                 fn()
@@ -605,6 +670,8 @@ def device_ms(fn, n=50, tries=3):
         busy = device_busy_ms(prof)
         if busy > 0.0:
             return busy / n
+        log(f"[kernels] torch.profiler trace {i + 1} of {n} calls held no "
+            "device interval; tracing again")
     raise AssertionError(f"torch.profiler traced no device time in {tries} "
                          "traces")
 
@@ -1140,35 +1207,43 @@ def phase_bilateral_training(seed, dev):
                            N_TRAIN_STEPS, 25, dev)
 
 
-def check_brdf_f64(tag, nets, batch, dev):
-    """Step 1 of BRDF training on a B=2 slice of the batch, in f32 and in
-    float64 (a ``.double()`` copy of the nets and of the slice), before
-    any update: the four errors and each net's gradient."""
+def check_brdf_f64(tag, nets, batch, dev, make_step=make_brdf_train_step,
+                   tol=BRDF_F64_TOL):
+    """Step 1 of a BRDF-nets step (``make_step``: the BRDF step or a
+    fine-tune step) on a B=2 slice of the batch, in f32 and in float64 (a
+    ``.double()`` copy of the nets and of the slice's float tensors),
+    before any update: the losses and each net's gradient (a net the loss
+    does not reach has none in either)."""
     sl = {k: v[:2] for k, v in batch.items()}
     out = {}
     for name, dtype in (("f32", torch.float32), ("f64", torch.float64)):
-        step = make_brdf_train_step(copy.deepcopy(nets).to(dtype),
-                                    device=dev)
-        total, errors = step.loss({k: v.to(dtype) for k, v in sl.items()})
+        step = make_step(copy.deepcopy(nets).to(dtype), device=dev)
+        total, errors = step.loss({k: v.to(dtype) if v.is_floating_point()
+                                   else v for k, v in sl.items()})
         total.backward()
-        grads = {n: torch.cat([p.grad.double().flatten() for pn, p in
-                               step.brdf_nets.named_parameters()
-                               if pn.startswith(n + ".")])
-                 for n in BRDF_NETS}
+        grads = {}
+        for n in BRDF_NETS:
+            gs = [p.grad for pn, p in step.brdf_nets.named_parameters()
+                  if pn.startswith(n + ".") and p.grad is not None]
+            if gs:
+                grads[n] = torch.cat([g.double().flatten() for g in gs])
         out[name] = ({k: v.item() for k, v in errors.items()}, grads)
         del step
     (e32, g32), (e64, g64) = out["f32"], out["f64"]
+    if sorted(g32) != sorted(g64):
+        raise AssertionError(f"{tag} nets reached: {sorted(g32)} in f32, "
+                             f"{sorted(g64)} in float64")
     dist = {k: abs(e32[k] / e64[k] - 1.0) for k in e64}
-    grads = {n: rel_l2(g32[n], g64[n]) for n in BRDF_NETS}
+    grads = {n: rel_l2(g32[n], g64[n]) for n in g64}
     log(f"{tag} step 1 on a B=2 slice, f32 vs float64: errors "
         + ", ".join(f"{k} {v:.6g}" for k, v in e32.items())
         + "; relative differences "
         + ", ".join(f"{k} {v:.3e}" for k, v in dist.items())
         + "; gradient relative L2 "
         + ", ".join(f"{k} {v:.3e}" for k, v in grads.items()))
-    if not max(dist.values()) <= BRDF_F64_TOL["errors"]:
+    if not max(dist.values()) <= tol["errors"]:
         raise AssertionError(f"{tag} step 1 errors vs float64: {dist}")
-    if not max(grads.values()) <= BRDF_F64_TOL["grads"]:
+    if not max(grads.values()) <= tol["grads"]:
         raise AssertionError(f"{tag} step 1 gradients vs float64: {grads}")
 
 
@@ -1296,11 +1371,7 @@ def hand_off(products, batch):
     for k, m in means.items():
         check_close(f"hand-off {k} mean", m, torch.full_like(m, 1 / 3),
                     1e-4, 0.0)
-    try:
-        import h5py
-        h5 = f"h5py {h5py.__version__} imports"
-    except ImportError:
-        h5 = "h5py does not import"
+    h5 = probe_import("h5py")
     log(f"[cascade] hand-off in memory: "
         + ", ".join(f"{k} {tuple(c1[k].shape)}" for k in (*PRE_STEMS,
                                                           "env_pre"))
@@ -1347,6 +1418,254 @@ def phase_cascade(seed, dev):
     for run in runs:
         for name, n in run.items():
             launches[name] += n
+    return launches, (brdf0, light0, batch, c1)
+
+
+# ---------------------------------------------------------------- phase 8
+
+
+def fine_tune_batches(seed, dev):
+    """The IIW batch (``IIW_MAX_NUM`` rows a kind, the loader's format)
+    with its judgements, and the NYU batch (ground truth at image size,
+    the loader's output size), B=BRDF_TRAIN_B, from ``seed``."""
+    iiw, judgements = synthetic_iiw_batch(batch=BRDF_TRAIN_B, im_hw=IM_HW,
+                                          max_num=IIW_MAX_NUM, seed=seed,
+                                          device=dev)
+    nyu = synthetic_nyu_batch(batch=BRDF_TRAIN_B, im_hw=IM_HW, seed=seed + 1,
+                              device=dev)
+    n = {k: iiw[f"{k}_num"].cpu().numpy() for k in ("eq", "darker")}
+    log(f"[fine-tune] IIW B={BRDF_TRAIN_B}, {IIW_MAX_NUM} rows a kind, "
+        "rows in use (dummy counted) eq "
+        f"{n['eq'].min()}-{n['eq'].max()}, darker {n['darker'].min()}-"
+        f"{n['darker'].max()}; NYU ground truth {tuple(nyu['depth'].shape)}, "
+        f"seg_depth {float(nyu['seg_depth'].mean()):.4f}, seg_normal "
+        f"{float(nyu['seg_normal'].mean()):.4f}")
+    return {"iiw": iiw, "nyu": nyu}, judgements
+
+
+def scores(nets, batches, judgements, synth=None):
+    """The benchmark metrics of ``nets``' predictions on the fine-tune
+    batches: WHDR (mean over the images) against the IIW judgements, and
+    the masked normal angle (mean of the images' means) and si-log depth
+    RMSE (mean) of ``nyu_step``'s full-size predictions against the NYU
+    ground truth.  ``synth`` maps a dataset to its cascade-1 batch."""
+    synth = synth or {}
+    with torch.no_grad():
+        albedo = brdf_forward(nets, synth.get("iiw", batches["iiw"]))[
+            "albedo"].cpu().double().numpy()
+        preds, _ = nyu_step(nets, synth.get("nyu", batches["nyu"]))
+    nyu = {k: v.cpu().double().numpy() for k, v in batches["nyu"].items()}
+    normal = preds["normal_full"].cpu().double().numpy()
+    depth = preds["depth_full"].cpu().double().numpy()
+    whdr = [w[0] for w in map(compute_whdr, albedo, judgements)
+            if w is not None]  # None: an image without a judgement
+    angle = [normal_angle_error(normal[i], nyu["normal"][i],
+                                nyu["seg_normal"][i, ..., 0])[0]
+             for i in range(len(normal))]
+    silog = [si_log_depth_rmse(depth[i, ..., 0], nyu["depth"][i, ..., 0])
+             for i in range(len(depth))]
+    out = {"whdr": float(np.mean(whdr)), "angle_deg": float(np.mean(angle)),
+           "si_log": float(np.mean(silog))}
+    ok = (0.0 <= min(whdr) and max(whdr) <= 1.0 and 0.0 <= min(angle)
+          and max(angle) <= 180.0 and all(np.isfinite(silog)))
+    if not ok or not all(np.isfinite(list(out.values()))):
+        raise AssertionError(f"metrics out of range: whdr {whdr}, angle "
+                             f"{angle}, si-log {silog}")
+    return out
+
+
+def fit_scales(brdf0, light0, im, pre):
+    """Per image, the scale the ``ls_regress_diff_spec`` fit gave the
+    rendered diffuse and specular: the synthesized map over the plain
+    render of the same predictions (its least-squares ratio)."""
+    r, c = light0.env_rows, light0.env_cols
+    with torch.no_grad():
+        preds = dict(brdf_forward(brdf0, {"im": im}))
+        for k in ("albedo", "depth"):
+            preds[k] = mean_normalize(preds[k])
+        sg_out = light_forward(light0, im, preds)
+        raw = sg_render.render_sg_plain(
+            *(pool_nhwc(preds[k], (r, c)) for k in ("albedo", "normal",
+                                                     "rough")),
+            sg_out["axis"], sg.unsquash(sg_out["lamb01"]),
+            sg.unsquash(sg_out["weight01"]), env_height=light0.env_height,
+            env_width=light0.env_width)
+    b = im.shape[0]
+    return {k: (torch.sum((pre[f"{k}_pre"] * x).reshape(b, -1), 1)
+                / torch.sum((x * x).reshape(b, -1), 1))
+            for k, x in zip(("diffuse", "specular"), raw)}
+
+
+def synth_routes(tag, brdf0, light0, batch):
+    """``synthesize_pre`` on each route: one ``render_sg_fwd`` launch on
+    the kernel route, none on the plain route; the BRDF maps and
+    ``env_pre`` bit-equal, diffuse and specular at the serving
+    tolerances; the fit's scales logged.  Returns the kernel route's
+    batch and its launches."""
+    out, counted = {}, {}
+    for route, flag in (("kernels", True), ("plain", False)):
+        synthesize_pre(brdf0, light0, batch, use_kernels=flag)  # autotuning
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out[route] = synthesize_pre(brdf0, light0, batch, use_kernels=flag)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counted[route] = read_launches()
+        want = {**dict.fromkeys(KERNELS, 0), "render_sg_fwd": int(flag)}
+        if counted[route] != want:
+            raise AssertionError(f"{tag} synthesis {route}: launches "
+                                 f"{counted[route]}, expected {want}")
+        log(f"{tag} synthesize_pre B={batch['im'].shape[0]}, {route} route: "
+            f"{ms:.3f} ms; launches {counted[route]}")
+    k, p = out["kernels"], out["plain"]
+    for key in PRE_KEYS:
+        if not torch.isfinite(k[key]).all() or k[key].requires_grad:
+            raise AssertionError(f"{tag} {key}: non-finite or not detached")
+    for key in ("albedo_pre", "normal_pre", "rough_pre", "depth_pre",
+                "env_pre"):
+        if not torch.equal(k[key], p[key]):
+            raise AssertionError(f"{tag} {key} differs between routes")
+    errs = {"diffuse": check_close(f"{tag} diffuse_pre", k["diffuse_pre"],
+                                   p["diffuse_pre"], *CHAIN_TOL["diffuse"]),
+            "specular": check_rel_l1(f"{tag} specular_pre", k["specular_pre"],
+                                     p["specular_pre"], SPECULAR_REL_L1)}
+    scales = {route: fit_scales(brdf0, light0, batch["im"], o)
+              for route, o in out.items()}
+    # an image's scale against the batch's largest: the fit clamps the
+    # specular coefficient at 0, and near it an image's own relative
+    # difference is ill-conditioned (logged beside)
+    diff, own, zeros = {}, {}, {}
+    for m, sk in scales["kernels"].items():
+        sp = scales["plain"][m]
+        zero = (sk == 0) & (sp == 0)  # the fit dropped specular
+        zeros[m] = int(zero.sum())
+        own[m] = float(torch.where(zero, 0.0, (sk / sp - 1.0).abs()).max())
+        diff[m] = float((sk - sp).abs().max()
+                        / torch.clamp(sp.abs().max(), min=1e-30))
+    log(f"{tag} synthesis, kernel route vs plain route: BRDF maps and "
+        "env_pre bit-equal; max abs err "
+        + ", ".join(f"{m} {v:.3e}" for m, v in errs.items())
+        + "; the fit's scales over the images (kernel route) "
+        + ", ".join(f"{m} {float(v.min()):.5g}-{float(v.max()):.5g}"
+                    for m, v in scales["kernels"].items())
+        + "; largest difference of an image's scale between routes over "
+        "the largest scale " + ", ".join(f"{m} {v:.3e}"
+                                         for m, v in diff.items())
+        + " (over its own scale " + ", ".join(f"{m} {v:.3e}"
+                                              for m, v in own.items())
+        + f"; {zeros['specular']} image(s) with specular scale 0 on both)")
+    if not max(diff.values()) <= SCALE_RTOL:
+        raise AssertionError(f"{tag} fit scales differ between routes: "
+                             f"{diff}")
+    return k, counted["kernels"]
+
+
+def fine_tune_cycles(tag, real_cls, nets, syn_batch, real_batch, dev,
+                     synth=None, pre=None):
+    """``N_FT_CYCLES`` cycles of the fine-tune: the synthetic BRDF step,
+    then the real-data step, on one Adam and schedule.  ``synth``: the
+    cascade-1 synthesis of the real-data batch, timed apart, run every
+    cycle as the fine-tune CLIs do; ``pre``: its result, on which step 1 of
+    the real-data step is held against float64 first.  Cycle 1 (cuDNN
+    autotuning) is timed apart.  Returns the trained nets and the
+    launches of the run."""
+    check_brdf_f64(tag, nets, real_batch if pre is None else pre, dev,
+                   make_step=real_cls, tol=FINETUNE_F64_TOL)
+    syn = make_brdf_train_step(nets, device=dev, lr=TRAIN_LR)
+    step = real_cls(nets, device=dev, optimizer=syn.optimizer,
+                    scheduler=syn.scheduler)
+    times = {"synthetic": [], "real": [], "synthesis": [], "cycle": []}
+    totals, real = [], real_batch
+    peaks = {"cycle": 0, "real": 0, "resident": 0}
+    reset_launches()
+    for _ in range(N_FT_CYCLES):
+        torch.cuda.reset_peak_memory_stats()
+        _, syn_ms = timed_step(syn, syn_batch)
+        synth_ms = 0.0
+        if synth:
+            real, synth_ms = timed_step(synth, real_batch)
+        peaks["cycle"] = max(peaks["cycle"], torch.cuda.max_memory_allocated())
+        torch.cuda.reset_peak_memory_stats()
+        peaks["resident"] = max(peaks["resident"],
+                                torch.cuda.memory_allocated())
+        metrics, real_ms = timed_step(step, real)
+        peaks["real"] = max(peaks["real"], torch.cuda.max_memory_allocated())
+        peaks["cycle"] = max(peaks["cycle"], peaks["real"])
+        bad = [k for k, v in metrics.items() if not torch.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{tag}: non-finite {bad}")
+        totals.append(float(metrics["total"]))
+        for k, v in (("synthetic", syn_ms), ("real", real_ms),
+                     ("synthesis", synth_ms),
+                     ("cycle", syn_ms + synth_ms + real_ms)):
+            times[k].append(v)
+    launches = read_launches()
+    want = {**dict.fromkeys(KERNELS, 0),
+            "render_sg_fwd": N_FT_CYCLES if synth else 0}
+    log(f"{tag} {N_FT_CYCLES} cycles: cycle 1 (autotuning) "
+        f"{times['cycle'][0]:.1f} ms, then ms median / p90 "
+        + ", ".join(f"{k} {percentiles(v[1:])[0]:.3f} / "
+                    f"{percentiles(v[1:])[1]:.3f}" for k, v in times.items()
+                    if any(v))
+        + f"; peak device memory {peaks['cycle'] / 2**20:.0f} MiB (the "
+        f"real-data step {peaks['real'] / 2**20:.0f}, "
+        f"{peaks['resident'] / 2**20:.0f} of it resident before the step); "
+        "real-data total "
+        f"{totals[0]:.6g} -> {totals[-1]:.6g} (min {min(totals):.6g}); "
+        f"launches {launches}")
+    if not min(totals[1:]) < totals[0]:
+        raise AssertionError(f"{tag}: real-data total did not fall: {totals}")
+    if launches != want:
+        raise AssertionError(f"{tag}: launches {launches}, expected {want}")
+    profile_step(tag, step, real, 0)
+    return nets, launches
+
+
+def phase_finetune(seed, dev, brdf0, light0, syn0, syn1):
+    """The IIW and NYU fine-tunes at both cascades, full width.  ``brdf0``
+    / ``light0``: phase 7's cascade-0 stack, frozen here; ``syn0`` /
+    ``syn1``: phase 7's cascade-0 and cascade-1 synthetic batches.
+    Returns {kernel: launches} of the run."""
+    t0 = time.perf_counter()
+    batches, judgements = fine_tune_batches(seed + 8, dev)
+    gen = torch.Generator().manual_seed(seed + 8)
+    init = {0: BRDFNets(0, generator=gen).to(dev),
+            1: BRDFNets(1, generator=gen).to(dev)}
+    brdf0.requires_grad_(False)
+    light0.requires_grad_(False)
+    log(f"[fine-tune] seeded c0 and c1 BRDF nets, phase 7's c0 stack "
+        f"frozen: {time.perf_counter() - t0:.1f} s (set-up)")
+    launches = dict.fromkeys(KERNELS, 0)
+    pre = {}  # dataset -> its cascade-1 batch (the kernel route's)
+    for name, batch in batches.items():
+        pre[name], counted = synth_routes(f"[fine-tune c1 {name}]", brdf0,
+                                          light0, batch)
+        for k, n in counted.items():
+            launches[k] += n
+    before = {lvl: scores(init[lvl], batches, judgements,
+                          pre if lvl else None) for lvl in (0, 1)}
+    classes = {"iiw": make_iiw_train_step, "nyu": make_nyu_train_step}
+    for lvl, syn_batch in ((0, syn0), (1, syn1)):
+        trained = {}
+        for name, cls in classes.items():
+            trained[name], counted = fine_tune_cycles(
+                f"[fine-tune c{lvl} {name}]", cls, copy.deepcopy(init[lvl]),
+                syn_batch, batches[name], dev,
+                synth=(lambda b: synthesize_pre(brdf0, light0, b)) if lvl
+                else None, pre=pre[name] if lvl else None)
+            for k, n in counted.items():
+                launches[k] += n
+        after = {m: scores(trained[m], batches, judgements,
+                           pre if lvl else None)
+                 for m in classes}
+        log(f"[fine-tune c{lvl}] metrics (random-weight numbers, not "
+            "quality): before "
+            + ", ".join(f"{k} {v:.5g}" for k, v in before[lvl].items())
+            + "; after the IIW cycles whdr "
+            f"{after['iiw']['whdr']:.5g}; after the NYU cycles angle_deg "
+            f"{after['nyu']['angle_deg']:.5g}, si_log "
+            f"{after['nyu']['si_log']:.5g}")
     return launches
 
 
@@ -1370,7 +1689,11 @@ def main(argv=None):
         args.seed, dev)["bilateral_blur"]
     # the cascade recipe's launches: the export's, the cascade-1 light and
     # bilateral steps'
-    for name, n in phase_cascade(args.seed, dev).items():
+    cascade, stack = phase_cascade(args.seed, dev)
+    for name, n in cascade.items():
+        launches[name] += n
+    # the fine-tunes' launches: the cascade-1 syntheses'
+    for name, n in phase_finetune(args.seed, dev, *stack).items():
         launches[name] += n
     for name, record in records.items():
         record["launches"] = launches[name]

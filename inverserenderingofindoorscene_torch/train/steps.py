@@ -6,7 +6,11 @@ rate every 10 epochs; :func:`reference_adam` is that optimizer with the
 halving as a per-step schedule.  A step here owns its modules and its
 optimizer and updates them in place (the JAX step is a pure function of
 a ``TrainState``).  Ported: the BRDF, lighting and bilateral stages, at
-either cascade level (the modules carry their level).
+either cascade level (the modules carry their level), and the IIW and
+NYU fine-tunes.  The fine-tune CLIs alternate a synthetic BRDF step
+and a real-data step on ONE Adam and one schedule (the JAX CLIs' one
+``TrainState``, whose count advances twice a cycle): hand the first
+step's ``optimizer`` and ``scheduler`` to the second.
 """
 
 from __future__ import annotations
@@ -23,6 +27,10 @@ from inverserenderingofindoorscene_torch.pipeline.bilateral import (
 from inverserenderingofindoorscene_torch.pipeline.brdf import (
     brdf_step,
     brdf_total_error,
+)
+from inverserenderingofindoorscene_torch.pipeline.finetune import (
+    iiw_step,
+    nyu_step,
 )
 from inverserenderingofindoorscene_torch.pipeline.light import light_step
 from inverserenderingofindoorscene_torch.utils.weights import (
@@ -71,17 +79,30 @@ class BRDFTrainStep:
     Calling it with a batch (NHWC tensors, moved to the step's device;
     the ``*_pre`` maps too at cascade >= 1) takes one step and returns the
     metrics: the four errors and ``total``, as detached scalars.
-    :meth:`loss` computes (total, errors) without the update."""
+    :meth:`loss` computes (total, errors) without the update.
+
+    ``optimizer`` / ``scheduler``: an Adam over these nets' parameters and
+    its schedule, shared with another step (the fine-tune cycle); by
+    default the step makes its own :func:`reference_adam` from ``lr`` and
+    ``epoch_decay_steps``."""
 
     def __init__(self, brdf_nets, albedo_w: float = 1.5,
                  normal_w: float = 1.0, rough_w: float = 0.5,
                  depth_w: float = 0.5, device=None, lr: float = 1e-4,
-                 epoch_decay_steps: Optional[int] = None):
+                 epoch_decay_steps: Optional[int] = None, optimizer=None,
+                 scheduler=None):
+        self.weights = (albedo_w, normal_w, rough_w, depth_w)
+        self._setup(brdf_nets, device, lr, epoch_decay_steps, optimizer,
+                    scheduler)
+
+    def _setup(self, brdf_nets, device, lr, epoch_decay_steps, optimizer,
+               scheduler):
         self.device = resolve_device(device)
         self.brdf_nets = brdf_nets.to(self.device)
-        self.weights = (albedo_w, normal_w, rough_w, depth_w)
-        self.optimizer, self.scheduler = reference_adam(
-            self.brdf_nets.parameters(), lr, epoch_decay_steps)
+        if optimizer is None:
+            optimizer, scheduler = reference_adam(
+                self.brdf_nets.parameters(), lr, epoch_decay_steps)
+        self.optimizer, self.scheduler = optimizer, scheduler
 
     def loss(self, batch: dict):
         batch = {k: v.to(self.device) for k, v in batch.items()}
@@ -99,12 +120,62 @@ class BRDFTrainStep:
         self.optimizer.zero_grad(set_to_none=True)
         total, errors = self.loss(batch)
         total.backward()
+        # a net the loss does not reach (the IIW loss reads albedo only)
+        # takes a zero gradient: optax's Adam decays its moments and moves
+        # it, torch's would skip a parameter without one
+        for p in self.brdf_nets.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         self.optimizer.step()
         if self.scheduler is not None:
             self.scheduler.step()
         metrics = {k: v.detach() for k, v in errors.items()}
         metrics["total"] = total.detach()
         return metrics
+
+
+class IIWTrainStep(BRDFTrainStep):
+    """The IIW half of the fine-tune cycle (trainFineTuneIIW): Adam on the
+    BRDF nets, loss = rank_w (eq + darker), the ranking losses of
+    :func:`iiw_step`.  Metrics: ``eq``, ``darker``, ``total``.  At
+    cascade 1 the batch carries the ``*_pre`` maps
+    (``pipeline.finetune.synthesize_pre``).  ``device``, ``lr``,
+    ``epoch_decay_steps``, ``optimizer`` and ``scheduler`` as in
+    :class:`BRDFTrainStep`."""
+
+    def __init__(self, brdf_nets, rank_w: float = 2.0, device=None,
+                 lr: float = 1e-4, epoch_decay_steps: Optional[int] = None,
+                 optimizer=None, scheduler=None):
+        self.rank_w = rank_w
+        self._setup(brdf_nets, device, lr, epoch_decay_steps, optimizer,
+                    scheduler)
+
+    def loss(self, batch: dict):
+        batch = {k: v.to(self.device) for k, v in batch.items()}
+        _, eq_l, dk_l = iiw_step(self.brdf_nets, batch)
+        return self.rank_w * (eq_l + dk_l), {"eq": eq_l, "darker": dk_l}
+
+
+class NYUTrainStep(BRDFTrainStep):
+    """The NYU half of the fine-tune cycle (trainFineTuneNYU): Adam on the
+    BRDF nets, loss = normal_w normal + depth_w depth, the losses of
+    :func:`nyu_step`.  Metrics: ``normal``, ``depth``, ``angle_deg``
+    (reported only), ``total``.  Arguments as in :class:`IIWTrainStep`."""
+
+    def __init__(self, brdf_nets, normal_w: float = 4.5,
+                 depth_w: float = 4.5, device=None, lr: float = 1e-4,
+                 epoch_decay_steps: Optional[int] = None, optimizer=None,
+                 scheduler=None):
+        self.normal_w, self.depth_w = normal_w, depth_w
+        self._setup(brdf_nets, device, lr, epoch_decay_steps, optimizer,
+                    scheduler)
+
+    def loss(self, batch: dict):
+        batch = {k: v.to(self.device) for k, v in batch.items()}
+        _, losses = nyu_step(self.brdf_nets, batch)
+        total = self.normal_w * losses["normal"] + self.depth_w * losses[
+            "depth"]
+        return total, losses
 
 
 class LightTrainStep:
@@ -210,5 +281,7 @@ class BilateralTrainStep:
 
 # the JAX package's names: a call builds the step
 make_brdf_train_step = BRDFTrainStep
+make_iiw_train_step = IIWTrainStep
+make_nyu_train_step = NYUTrainStep
 make_light_train_step = LightTrainStep
 make_bilateral_train_step = BilateralTrainStep

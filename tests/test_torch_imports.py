@@ -22,7 +22,8 @@ for name in names:
 need = {"data.synthetic", "losses.masked", "train.steps", "pipeline.light",
         "ops.sg_render", "ops.bilateral", "pipeline.bilateral",
         "models.bilateral_net", "pipeline.export", "utils.io",
-        "data.openrooms"}
+        "data.openrooms", "losses.ranking", "pipeline.finetune",
+        "eval.metrics"}
 assert {port.__name__ + "." + n for n in need} <= set(names)
 import chip_smoke
 bad = sorted(m for m in sys.modules
