@@ -77,19 +77,33 @@ from __future__ import annotations
 import argparse
 import copy
 import json
+import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from inverserenderingofindoorscene_torch.cli import common as cli_common
+from inverserenderingofindoorscene_torch.cli import (
+    train_brdf as cli_train_brdf,
+    train_light as cli_train_light,
+)
+from inverserenderingofindoorscene_torch.data import fixture
+from inverserenderingofindoorscene_torch.data.iiw import IIWDataset
+from inverserenderingofindoorscene_torch.data.nyu import NYUDataset
 from inverserenderingofindoorscene_torch.data.openrooms import (
     PRE_STEMS,
+    BatchIterator,
+    OpenRoomsDataset,
     normalize_cascade_pre,
 )
+from inverserenderingofindoorscene_torch.native import hdr as native_hdr
 from inverserenderingofindoorscene_torch.core import sg
 from inverserenderingofindoorscene_torch.core.render_layer import pool_nhwc
 from inverserenderingofindoorscene_torch.core.scale import mean_normalize
@@ -130,12 +144,16 @@ from inverserenderingofindoorscene_torch.pipeline.light import (
     light_forward,
 )
 from inverserenderingofindoorscene_torch.train.steps import (
+    BRDFTrainStep,
+    LightTrainStep,
     make_bilateral_train_step,
     make_brdf_train_step,
     make_iiw_train_step,
     make_light_train_step,
     make_nyu_train_step,
 )
+from inverserenderingofindoorscene_torch.utils import checkpoint as ckpt
+from inverserenderingofindoorscene_torch.utils.logging import MetricLogger
 
 IM_HW = (240, 320)
 ENV_RC = (120, 160)
@@ -150,6 +168,14 @@ BRDF_TRAIN_B = 16  # the JAX CLIs' default batch (cli/common.py:34)
 IIW_MAX_NUM = 800  # the IIW loader's rows a kind (data/iiw.py:25)
 N_FT_CYCLES = 10
 N_BS_C1_STEPS = 10
+FIXTURE_IMAGES = 16  # phase 9: one TRAIN scene
+CLI_WORKERS = 4  # the CLIs' default --numWorkers
+CLI_RESUME_B = 4  # the kill-and-resume run: 4 steps an epoch
+LIGHT_CLI_STEPS = 2
+# the killed-and-resumed train_brdf run's final weights against the
+# uninterrupted run's, each net's relative L2 (cuDNN may pick another
+# algorithm, or reduce in another order, between the runs)
+RESUME_REL_L2 = 1e-4
 BRDF_NETS = ("encoder", "albedo", "normal", "rough", "depth")
 _CSRC = "inverserenderingofindoorscene_torch/ops/csrc/"
 _TPU = "inverserenderingofindoorscene_tpu/ops/sg_render.py:"
@@ -301,8 +327,15 @@ def check_close(name, got, want, rtol, atol):
     bad = err > atol + rtol * want.abs()
     max_err = float(err.max())
     if not torch.isfinite(got).all() or bool(bad.any()):
-        raise AssertionError(f"{name}: {int(bad.sum())} elements outside "
-                             f"rtol={rtol} atol={atol}; max abs err {max_err}")
+        idx = (bad | ~torch.isfinite(got)).flatten().nonzero().flatten()
+        first = [(int(i), float(got.flatten()[i]), float(want.flatten()[i]))
+                 for i in idx[:4]]
+        raise AssertionError(
+            f"{name}: {int(bad.sum())} elements outside rtol={rtol} "
+            f"atol={atol}; max abs err {max_err}; non-finite "
+            f"{int((~torch.isfinite(got)).sum())}; the first (flat index, "
+            f"got, want): {first}; want finite "
+            f"{bool(torch.isfinite(want).all())}")
     return max_err
 
 
@@ -1626,7 +1659,8 @@ def phase_finetune(seed, dev, brdf0, light0, syn0, syn1):
     """The IIW and NYU fine-tunes at both cascades, full width.  ``brdf0``
     / ``light0``: phase 7's cascade-0 stack, frozen here; ``syn0`` /
     ``syn1``: phase 7's cascade-0 and cascade-1 synthetic batches.
-    Returns {kernel: launches} of the run."""
+    Returns {kernel: launches} of the run and the cascade-0 nets trained
+    by each fine-tune ({"iiw": ..., "nyu": ...})."""
     t0 = time.perf_counter()
     batches, judgements = fine_tune_batches(seed + 8, dev)
     gen = torch.Generator().manual_seed(seed + 8)
@@ -1646,6 +1680,7 @@ def phase_finetune(seed, dev, brdf0, light0, syn0, syn1):
     before = {lvl: scores(init[lvl], batches, judgements,
                           pre if lvl else None) for lvl in (0, 1)}
     classes = {"iiw": make_iiw_train_step, "nyu": make_nyu_train_step}
+    nets0 = None
     for lvl, syn_batch in ((0, syn0), (1, syn1)):
         trained = {}
         for name, cls in classes.items():
@@ -1659,6 +1694,7 @@ def phase_finetune(seed, dev, brdf0, light0, syn0, syn1):
         after = {m: scores(trained[m], batches, judgements,
                            pre if lvl else None)
                  for m in classes}
+        nets0 = nets0 or trained
         log(f"[fine-tune c{lvl}] metrics (random-weight numbers, not "
             "quality): before "
             + ", ".join(f"{k} {v:.5g}" for k, v in before[lvl].items())
@@ -1666,6 +1702,435 @@ def phase_finetune(seed, dev, brdf0, light0, syn0, syn1):
             f"{after['iiw']['whdr']:.5g}; after the NYU cycles angle_deg "
             f"{after['nyu']['angle_deg']:.5g}, si_log "
             f"{after['nyu']['si_log']:.5g}")
+    return launches, nets0
+
+
+# ---------------------------------------------------------------- phase 9
+
+
+class CLITimer:
+    """Instruments the CLIs while they run in this process: the host time
+    of each loader wait, batch staging, train step and checkpoint save
+    (each ending in a synchronize), each logged metric line at full
+    precision, and a torch.profiler trace of step ``profile_at`` (1-based,
+    of every step taken while active).  ``kill_at``: the log call at
+    which a KeyboardInterrupt is raised (a simulated preemption)."""
+
+    STEPS = (BRDFTrainStep, LightTrainStep)
+
+    def __init__(self, profile_at=None, kill_at=None):
+        self.profile_at, self.kill_at = profile_at, kill_at
+        self.times = {"loader": [], "stage": [], "step": [], "save": []}
+        self.lines, self.busy, self.prof = [], None, None
+        self._saved = []
+
+    def _patch(self, owner, name, wrap):
+        orig = getattr(owner, name)
+        self._saved.append((owner, name, orig))
+        setattr(owner, name, wrap(orig))
+
+    def _timed(self, key):
+        def wrap(orig):
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = orig(*a, **kw)
+                torch.cuda.synchronize()
+                self.times[key].append((time.perf_counter() - t0) * 1e3)
+                return out
+            return run
+        return wrap
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        timer = self
+
+        def loader(orig):
+            def it(self_):
+                gen = orig(self_)
+                try:
+                    while True:
+                        t0 = time.perf_counter()
+                        try:
+                            item = next(gen)
+                        except StopIteration:
+                            return
+                        timer.times["loader"].append(
+                            (time.perf_counter() - t0) * 1e3)
+                        yield item
+                finally:
+                    gen.close()
+            return it
+
+        def step(orig):
+            timed = self._timed("step")(orig)
+
+            def run(self_, batch):
+                if len(timer.times["step"]) + 1 != timer.profile_at:
+                    return timed(self_, batch)
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    out = timed(self_, batch)
+                timer.busy = (device_busy_ms(prof), timer.times["step"][-1])
+                timer.prof = prof
+                return out
+            return run
+
+        def logged(orig):
+            def run(self_, epoch, j, metrics):
+                orig(self_, epoch, j, metrics)
+                timer.lines.append((epoch, j, dict(metrics)))
+                if len(timer.lines) == timer.kill_at:
+                    raise KeyboardInterrupt  # a simulated preemption
+            return run
+
+        self._patch(BatchIterator, "__iter__", loader)
+        self._patch(cli_common, "stage_batch", self._timed("stage"))
+        for cls in self.STEPS:
+            self._patch(cls, "__call__", step)
+        self._patch(ckpt, "save_step_checkpoint", self._timed("save"))
+        self._patch(ckpt, "save_checkpoint", self._timed("save"))
+        self._patch(MetricLogger, "log", logged)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._saved):
+            setattr(owner, name, orig)
+        return False
+
+    def summary(self, skip=1):
+        """ms medians of the loader wait, the staging and the step (after
+        the first ``skip`` of each), of the saves, and the profiled step's
+        idle share, alone and with its loader wait and staging."""
+        med = {}
+        for k, v in self.times.items():
+            v = v if k == "save" else v[skip:]
+            if v:
+                med[k] = statistics.median(v)
+        out = ", ".join(f"{k} {v:.3f}" for k, v in med.items())
+        if self.busy:
+            busy, ms = self.busy
+            it = med["loader"] + med["stage"] + ms
+            out += (f"; the profiled step {ms:.3f} ms, device busy "
+                    f"{busy:.3f} ms (idle share {1.0 - busy / ms:.3f}; of "
+                    f"loader wait + staging + step {1.0 - busy / it:.3f})")
+        return out
+
+
+def cli_args(root, exp, *extra):
+    return ["--dataRoot", root, "--experiment", exp, "--device", "cuda",
+            "--imHeight", str(IM_HW[0]), "--imWidth", str(IM_HW[1]),
+            "--envRow", str(ENV_RC[0]), "--envCol", str(ENV_RC[1]),
+            "--SGNum", str(SG_NUM), "--seed", "0", "--logFlushSteps", "1",
+            *map(str, extra)]
+
+
+def write_fixtures(tmp, seed):
+    """The OpenRooms fixture at full width (one TRAIN scene), and IIW and
+    NYU fixtures of ``BRDF_TRAIN_B`` frames, timed."""
+    out = {}
+    for name, write, kw in (
+            ("openrooms", fixture.write_openrooms_fixture,
+             dict(n_scenes=1, per_scene=FIXTURE_IMAGES, n_test_scenes=0,
+                  im_hw=IM_HW, env_rc=ENV_RC, seed=seed)),
+            ("iiw", fixture.write_iiw_fixture,
+             dict(n_train=BRDF_TRAIN_B, n_test=0, seed=seed)),
+            ("nyu", fixture.write_nyu_fixture,
+             dict(n_train=BRDF_TRAIN_B, n_test=0, seed=seed))):
+        t0 = time.perf_counter()
+        out[name] = write(os.path.join(tmp, name), **kw)
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(out[name]) for f in fs)
+        log(f"[from disk] {name} fixture {kw}: "
+            f"{time.perf_counter() - t0:.1f} s, {size / 2**20:.1f} MiB")
+    return out
+
+
+def check_loaders(root):
+    """The native decoder is built and bit-equal to the cv2 route on a
+    fixture envmap; the loaders' items a second, the BRDF loader in
+    process mode and the light loader in thread mode (epoch 2 of each:
+    epoch 1 also starts the process pool)."""
+    if not native_hdr.native_available():
+        raise AssertionError("the native RGBE decoder did not build")
+    ds = OpenRoomsDataset(root, im_hw=IM_HW, env_rc=ENV_RC, is_light=True,
+                          is_all_light=True, sg_num=SG_NUM)
+    path = ds.im_list[0].replace("im_", "imenv_")
+    t0 = time.perf_counter()
+    native, _ = ds._load_envmap(path)
+    t1 = time.perf_counter()
+    plain, _ = ds._load_envmap_cv2(path)
+    t2 = time.perf_counter()
+    if not np.array_equal(native, plain):
+        raise AssertionError("native and cv2 envmap decodes differ")
+    log(f"[from disk] envmap {path.rsplit('/', 1)[-1]} "
+        f"({ENV_RC[0] * 16}x{ENV_RC[1] * 32} RGBE): native decode + pool "
+        f"{(t1 - t0) * 1e3:.1f} ms, cv2 + numpy {(t2 - t1) * 1e3:.1f} ms, "
+        "bit-equal")
+    rates = {}
+    for mode, light, b in (("process", False, BRDF_TRAIN_B),
+                           ("thread", True, TRAIN_B)):
+        it = BatchIterator(OpenRoomsDataset(
+            root, im_hw=IM_HW, env_rc=ENV_RC, is_light=light,
+            is_all_light=light, sg_num=SG_NUM), b, num_workers=CLI_WORKERS,
+            mode=mode)
+        try:
+            for epoch in range(2):
+                t0 = time.perf_counter()
+                n = sum(len(batch["name"]) for batch in it)
+                rates[(mode, epoch)] = n / (time.perf_counter() - t0)
+        finally:
+            it.close()
+    log(f"[from disk] loader items/s with {CLI_WORKERS} workers on "
+        f"{os.cpu_count()} host cores: BRDF items, process mode, epoch 1 "
+        f"{rates[('process', 0)]:.2f} (pool start included), epoch 2 "
+        f"{rates[('process', 1)]:.2f}; light items (22 MB env_gt), thread "
+        f"mode, epoch 1 {rates[('thread', 0)]:.2f}, epoch 2 "
+        f"{rates[('thread', 1)]:.2f}")
+
+
+def nets_rel_l2(a, b):
+    """Each net's parameters (all together) in two BRDF checkpoints: the
+    relative L2 distance."""
+    out = {}
+    for net in BRDF_NETS:
+        ka = [k for k in a["nets"] if k.startswith(net + ".")]
+        va = torch.cat([a["nets"][k].double().flatten() for k in ka])
+        vb = torch.cat([b["nets"][k].double().flatten() for k in ka])
+        out[net] = rel_l2(va, vb)
+    return out
+
+
+def train_brdf_cli(root, tmp, dev):
+    """``train_brdf`` at cascade 0: B=16 with process workers, 2 epochs of
+    one step with a step checkpoint each; then the kill and resume at B=4.
+    Returns the first run's experiment (its checkpoint is the frozen nets
+    of ``train_light``)."""
+    exp = os.path.join(tmp, "brdf16")
+    with CLITimer(profile_at=2) as timer:
+        cli_train_brdf.main(cli_args(
+            root, exp, "--batchSize", BRDF_TRAIN_B, "--numWorkers",
+            CLI_WORKERS, "--nepoch", 2, "--ckptEverySteps", 1, "--resume",
+            "auto", "--previewEvery", 0))
+    per_epoch = FIXTURE_IMAGES // BRDF_TRAIN_B
+    if [(e, j) for e, j, _ in timer.lines] != [
+            (e, j) for e in range(2) for j in range(per_epoch)]:
+        raise AssertionError(f"train_brdf B=16 logged {timer.lines}")
+    bad = [k for _, _, m in timer.lines for k, v in m.items()
+           if not np.isfinite(v)]
+    if bad or ckpt.latest_epoch(exp, "brdf", 0) != 1:
+        raise AssertionError(f"train_brdf B=16: non-finite {bad} or no "
+                             "epoch-1 checkpoint")
+    log(f"[from disk] train_brdf c0 B={BRDF_TRAIN_B}, {CLI_WORKERS} process "
+        f"workers, 2 epochs of {per_epoch} step(s), a step checkpoint a step "
+        "and an epoch checkpoint an epoch, no previews: "
+        f"step 1 (autotuning) {timer.times['step'][0]:.1f} ms; ms "
+        + timer.summary() + f"; total {timer.lines[0][2]['total']:.6g} -> "
+        f"{timer.lines[-1][2]['total']:.6g}"
+        " (phase 7's in-memory train-c0-brdf step beside it)")
+
+    runs = {}
+    for name, kill in (("whole", None), ("killed", 2), ("resumed", None)):
+        run_exp = os.path.join(tmp, "brdf4_" + ("whole" if name == "whole"
+                                                else "killed"))
+        with CLITimer(kill_at=kill) as timer:
+            try:
+                cli_train_brdf.main(cli_args(
+                    root, run_exp, "--batchSize", CLI_RESUME_B,
+                    "--numWorkers", CLI_WORKERS, "--nepoch", 1,
+                    "--ckptEverySteps", 1, "--resume", "auto",
+                    "--previewEvery", 0))
+            except KeyboardInterrupt:
+                if kill is None:
+                    raise
+            else:
+                if kill is not None:
+                    raise AssertionError("the killed run was not killed")
+        runs[name] = (run_exp, timer)
+        if name == "killed" and (
+                ckpt.list_step_checkpoints(run_exp, "brdf", 0)[-1] != (0, 0)
+                or ckpt.latest_epoch(run_exp, "brdf", 0) is not None):
+            raise AssertionError("the killed run's newest checkpoint is not "
+                                 "step 1's")
+    steps = {k: [(e, j) for e, j, _ in t.lines] for k, (_, t) in runs.items()}
+    per_epoch = FIXTURE_IMAGES // CLI_RESUME_B
+    want = {"whole": [(0, j) for j in range(per_epoch)],
+            "killed": [(0, 0), (0, 1)],
+            "resumed": [(0, j) for j in range(1, per_epoch)]}
+    if steps != want:
+        raise AssertionError(f"kill and resume logged {steps}, want {want}")
+    a = ckpt.restore_checkpoint(runs["whole"][0], "brdf", 0, 0)
+    b = ckpt.restore_checkpoint(runs["resumed"][0], "brdf", 0, 0)
+    equal = all(torch.equal(a["nets"][k], b["nets"][k]) for k in a["nets"])
+    dist = nets_rel_l2(b, a)
+    same_loss = [runs["resumed"][1].lines[i][2] == runs["whole"][1]
+                 .lines[i + 1][2] for i in range(per_epoch - 1)]
+    log(f"[from disk] train_brdf c0 B={CLI_RESUME_B}, one epoch of "
+        f"{per_epoch} steps: "
+        "uninterrupted, then killed after step 1 (the log of step 2 raises; "
+        "the newest step checkpoint is step 1's) and resumed with --resume "
+        f"auto: final checkpoints {'bit-equal' if equal else 'differ'}; "
+        "relative L2 of each net's parameters "
+        + ", ".join(f"{k} {v:.3e}" for k, v in dist.items())
+        + f"; resumed steps' losses equal to the uninterrupted run's: "
+        f"{same_loss}; ms " + runs["whole"][1].summary())
+    if not max(dist.values()) < RESUME_REL_L2:
+        raise AssertionError(f"resumed run vs uninterrupted: {dist}")
+    repeat_determinism(root, a, dev)
+    return exp
+
+
+def repeat_determinism(root, state, dev):
+    """Which nets' gradients a BRDF step repeats bit for bit: the same
+    state and the same B=4 loader batch twice, with cuDNN's autotuned
+    algorithms and with ``cudnn.deterministic`` (deterministic algorithms
+    only)."""
+    batch = next(iter(BatchIterator(OpenRoomsDataset(
+        root, im_hw=IM_HW, env_rc=ENV_RC), CLI_RESUME_B, num_workers=0,
+        shuffle=False)))
+    batch = cli_common.stage_batch(batch, dev)
+    nets = BRDFNets(0)
+    nets.load_state_dict(state["nets"])
+
+    def grads():
+        step = make_brdf_train_step(copy.deepcopy(nets), device=dev)
+        step.loss(batch)[0].backward()
+        return dict(step.brdf_nets.named_parameters())
+
+    out = {}
+    for label, det in (("autotuned", False), ("cudnn.deterministic", True)):
+        torch.backends.cudnn.deterministic = det
+        try:
+            runs = [grads(), grads()]
+        finally:
+            torch.backends.cudnn.deterministic = False
+        out[label] = {net: all(torch.equal(p.grad, runs[1][n].grad)
+                               for n, p in runs[0].items()
+                               if n.startswith(net + "."))
+                      for net in BRDF_NETS}
+    log("[from disk] one B=4 BRDF step's gradients twice from the same "
+        "state and batch, bit-equal by net: "
+        + "; ".join(f"{label} " + ", ".join(f"{n} {v}" for n, v in r.items())
+                    for label, r in out.items()))
+
+
+def train_light_cli(root, tmp, brdf_exp):
+    """``train_light`` at cascade 0 on the frozen nets of ``brdf_exp``'s
+    checkpoint: B=5, 2 steps with the kernels, then the same from the same
+    start with ``--noKernels``; step 1's losses of the two routes within
+    STEP1_TOL.  A third run, with the kernels and process workers
+    (``--loaderMode process``), times the step while no loader thread of
+    this process decodes.  Returns {kernel: launches} of the kernel
+    routes' runs."""
+    runs = {}
+    for route, flag, mode in (("kernels", "--useKernels", "thread"),
+                              ("plain", "--noKernels", "thread"),
+                              ("kernels-process", "--useKernels",
+                               "process")):
+        reset_launches()
+        with CLITimer(profile_at=2) as timer:
+            cli_train_light.main(cli_args(
+                root, os.path.join(tmp, "light_" + route), "--batchSize",
+                TRAIN_B, "--numWorkers", CLI_WORKERS, "--loaderMode", mode,
+                "--nepoch", 1, "--maxSteps", LIGHT_CLI_STEPS,
+                "--brdfExperiment", brdf_exp, flag))
+        runs[route] = (timer, read_launches())
+        log(f"[from disk] train_light c0 B={TRAIN_B}, {route.split('-')[0]} "
+            f"route, {CLI_WORKERS} {mode} workers, {LIGHT_CLI_STEPS} steps on "
+            "the frozen nets of train_brdf's epoch-1 checkpoint: ms "
+            + timer.summary() + f"; launches {runs[route][1]} "
+            "(phase 5's in-memory train-c0-light step beside it); the "
+            "profiled step's ops by host time:")
+        log(timer.prof.key_averages().table(sort_by="self_cpu_time_total",
+                                            row_limit=8))
+    (tk, lk), (tp, lp) = runs["kernels"], runs["plain"]
+    steps = {**dict.fromkeys(KERNELS, LIGHT_CLI_STEPS), "render_sg_env": 0,
+             "bilateral_blur": 0}
+    want = {"kernels": steps, "plain": dict.fromkeys(KERNELS, 0),
+            "kernels-process": steps}
+    got = {route: launches for route, (_, launches) in runs.items()}
+    if got != want:
+        raise AssertionError(f"train_light launches {got}, expected {want}")
+    mk, mp = tk.lines[0][2], tp.lines[0][2]
+    dist = {k: abs(mk[k] / mp[k] - 1.0) for k in ("reconst", "render")}
+    log("[from disk] train_light step 1, kernel route vs plain route: "
+        + ", ".join(f"{k} {v:.6g}" for k, v in mk.items())
+        + "; relative differences "
+        + ", ".join(f"{k} {v:.3e}" for k, v in dist.items())
+        + "; BRDF errors equal: "
+        + str(all(mk[k] == mp[k] for k in ("albedo", "normal", "rough",
+                                            "depth"))))
+    for k, v in dist.items():
+        if not v <= STEP1_TOL[k]:
+            raise AssertionError(f"train_light step 1 {k}: {v} > "
+                                 f"{STEP1_TOL[k]}")
+    bad = [k for t, _ in runs.values() for _, _, m in t.lines
+           for k, v in m.items() if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"train_light: non-finite {bad}")
+    return {k: lk[k] + runs["kernels-process"][1][k] for k in lk
+            if k not in ("render_sg_env", "bilateral_blur")}
+
+
+def real_data_steps(roots, nets, dev):
+    """One B=16 batch of each real-data fixture through the port's
+    loaders and ``stage_batch``, one IIW and one NYU step on phase 8's
+    cascade-0 nets; the losses finite."""
+    iiw_root, nyu_root = roots["iiw"], roots["nyu"]
+    loaders = {
+        "iiw": (IIWDataset(iiw_root, os.path.join(iiw_root, "IIWTrain.txt"),
+                           im_hw=IM_HW, max_num=IIW_MAX_NUM),
+                make_iiw_train_step),
+        "nyu": (NYUDataset(*(os.path.join(nyu_root, s) for s in (
+            "images", "normals", "depths", "segs", "NYUTrain.txt")),
+            im_hw=IM_HW), make_nyu_train_step),
+    }
+    for name, (ds, make) in loaders.items():
+        t0 = time.perf_counter()
+        batch = next(iter(BatchIterator(ds, BRDF_TRAIN_B,
+                                        num_workers=CLI_WORKERS)))
+        staged = cli_common.stage_batch(batch, dev)
+        load_ms = (time.perf_counter() - t0) * 1e3
+        metrics, ms = timed_step(make(copy.deepcopy(nets[name]), device=dev),
+                                 staged)
+        bad = [k for k, v in metrics.items() if not torch.isfinite(v)]
+        if bad:
+            raise AssertionError(f"{name} step on the fixture: non-finite "
+                                 f"{bad}")
+        log(f"[from disk] {name} fixture batch B={BRDF_TRAIN_B} "
+            f"({tuple(staged['im'].shape)}): loaded and staged in "
+            f"{load_ms:.1f} ms; one step on phase 8's c0 nets {ms:.1f} ms: "
+            + ", ".join(f"{k} {v.item():.6g}" for k, v in metrics.items()))
+
+
+def phase_from_disk(seed, dev, nets):
+    """The loaders and the first two training CLIs from files: fixtures
+    written outside the checkout and removed at the end, the native
+    decoder (no cv2 fallback: it raises here), ``train_brdf`` with a kill
+    and resume, ``train_light`` on its checkpoint with the kernels, and
+    the real-data loaders into the fine-tune steps.  ``nets``: phase 8's
+    cascade-0 nets by fine-tune.  Returns {kernel: launches} of the run."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="irois_from_disk_")
+
+    def no_cv2(*a, **kw):
+        raise AssertionError("an envmap went through cv2, not the native "
+                             "decoder")
+
+    cv2_route = OpenRoomsDataset._load_envmap_cv2
+    try:
+        roots = write_fixtures(tmp, seed)
+        check_loaders(roots["openrooms"])
+        OpenRoomsDataset._load_envmap_cv2 = no_cv2
+        brdf_exp = train_brdf_cli(roots["openrooms"], tmp, dev)
+        launches = train_light_cli(roots["openrooms"], tmp, brdf_exp)
+        real_data_steps(roots, nets, dev)
+    finally:
+        OpenRoomsDataset._load_envmap_cv2 = cv2_route
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[from disk] phase 9: {time.perf_counter() - t_phase:.1f} s, "
+        f"the fixtures and checkpoints under {tmp} removed")
     return launches
 
 
@@ -1693,8 +2158,11 @@ def main(argv=None):
     for name, n in cascade.items():
         launches[name] += n
     # the fine-tunes' launches: the cascade-1 syntheses'
-    for name, n in phase_finetune(args.seed, dev, *stack).items():
-        launches[name] += n
+    finetune, nets0 = phase_finetune(args.seed, dev, *stack)
+    # from disk: the light CLI's steps on the kernel route
+    for run in (finetune, phase_from_disk(args.seed, dev, nets0)):
+        for name, n in run.items():
+            launches[name] += n
     for name, record in records.items():
         record["launches"] = launches[name]
     log(smi)

@@ -1,9 +1,10 @@
 """Image-space ops on NCHW tensors, and the NHWC <-> NCHW views.
 
-PyTorch's own ops already have the reference semantics that the JAX
-package's ``core/imageops.py`` rebuilds for the TPU: bilinear resize with
-half-pixel centers, adaptive average pooling with the torch bin rule, and
-edge-replicate padding.  The TPU speed workarounds there (the depthwise-conv
+PyTorch's own ops already have the semantics that the JAX package's
+``core/imageops.py`` rebuilds for the TPU: bilinear resize with
+half-pixel centers (antialiased where it shrinks, as
+``jax.image.resize(..., "linear")``), adaptive average pooling with the
+torch bin rule, and edge-replicate padding.  The TPU speed workarounds there (the depthwise-conv
 2x upsample, the hand-written pad VJP, the pooling matrices) are not
 ported.
 """
@@ -25,11 +26,15 @@ def to_nhwc(x: torch.Tensor) -> torch.Tensor:
 
 
 def resize_bilinear(x: torch.Tensor, out_hw) -> torch.Tensor:
-    """Bilinear resize of NCHW to (H', W') with half-pixel centers."""
-    return F.interpolate(
-        x, size=(int(out_hw[0]), int(out_hw[1])), mode="bilinear",
-        align_corners=False, antialias=False,
-    )
+    """Bilinear resize of NCHW to (H', W') with half-pixel centers, the
+    JAX package's ``resize_bilinear``.  Where either side shrinks, the
+    filter widens by the shrink factor on that side (antialiasing, as
+    ``jax.image.resize`` does); an upscale or identity takes the plain
+    bilinear kernel, which is the same function there."""
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    shrinks = oh < x.shape[-2] or ow < x.shape[-1]
+    return F.interpolate(x, size=(oh, ow), mode="bilinear",
+                         align_corners=False, antialias=shrinks)
 
 
 def upsample2x(x: torch.Tensor) -> torch.Tensor:

@@ -54,11 +54,14 @@ class BRDFNets(nn.Module):
             generator = torch.Generator().manual_seed(0)
         init_weights(self, generator)
 
-    def forward(self, im: torch.Tensor, inp: torch.Tensor) -> dict:
+    def forward(self, im: torch.Tensor, inp: torch.Tensor,
+                heads=tuple(HEADS)) -> dict:
         """im [B,3,H,W]; inp the encoder input (im itself at cascade 0).
-        Returns the raw head outputs, NCHW, keyed by decoder name."""
+        Returns the raw outputs of ``heads`` (decoder names; all four by
+        default), NCHW, keyed by decoder name: a decoder not asked for
+        does not run."""
         feats = self.encoder(inp)
-        return {name: getattr(self, name)(im, feats) for name in HEADS}
+        return {name: getattr(self, name)(im, feats) for name in heads}
 
 
 def prepare_cascade_input(batch: dict, im_hw) -> torch.Tensor:
@@ -97,8 +100,9 @@ def prepare_cascade_input(batch: dict, im_hw) -> torch.Tensor:
     ], dim=1))
 
 
-def brdf_forward(nets: BRDFNets, batch: dict) -> dict:
-    """Encoder + 4 heads on ``batch["im"]`` [B,H,W,3]; NHWC preds.
+def brdf_forward(nets: BRDFNets, batch: dict, heads=tuple(HEADS)) -> dict:
+    """Encoder + the decoders ``heads`` (all four by default) on
+    ``batch["im"]`` [B,H,W,3]; NHWC preds keyed by head.
 
     The encoder sees ``im`` at cascade 0 and the 17 channels of
     :func:`prepare_cascade_input` at cascade >= 1; the decoders see
@@ -109,14 +113,9 @@ def brdf_forward(nets: BRDFNets, batch: dict) -> dict:
         inp = im
     else:
         inp = to_nchw(prepare_cascade_input(batch, im.shape[2:]))
-    out = nets(im, inp)
-    preds = {
-        "albedo": 0.5 * (out["albedo"] + 1.0),
-        "normal": out["normal"],
-        "rough": out["rough"],
-        "depth": 0.5 * (out["depth"] + 1.0),
-    }
-    return {k: to_nhwc(v) for k, v in preds.items()}
+    out = nets(im, inp, heads)
+    return {k: to_nhwc(0.5 * (v + 1.0) if k in ("albedo", "depth") else v)
+            for k, v in out.items()}
 
 
 def brdf_step(nets: BRDFNets, batch: dict):

@@ -33,7 +33,10 @@ from inverserenderingofindoorscene_torch.losses.ranking import (
     batched_ranking_loss,
 )
 from inverserenderingofindoorscene_torch.ops.sg_render import render_sg
-from inverserenderingofindoorscene_torch.pipeline.brdf import brdf_forward
+from inverserenderingofindoorscene_torch.pipeline.brdf import (
+    HEADS,
+    brdf_forward,
+)
 from inverserenderingofindoorscene_torch.pipeline.light import light_forward
 
 PRE_KEYS = ("albedo_pre", "normal_pre", "rough_pre", "depth_pre",
@@ -93,14 +96,15 @@ def synthesize_pre(brdf_nets0, light_nets0, batch: dict,
     return out
 
 
-def iiw_step(nets, batch: dict):
+def iiw_step(nets, batch: dict, heads=tuple(HEADS)):
     """The BRDF forward and the per-image ranking losses averaged over the
     batch (the reference's wrapperIIW).
 
     batch keys: im [B,H,W,3], eq_point [B,N,4], eq_weight [B,N], eq_num
     [B], darker_* likewise, and at cascade >= 1 the ``*_pre`` maps
-    (:func:`synthesize_pre`).  Returns (preds, eq_loss, darker_loss)."""
-    preds = brdf_forward(nets, batch)
+    (:func:`synthesize_pre`).  ``heads``: the decoders to run (the loss
+    reads albedo only).  Returns (preds, eq_loss, darker_loss)."""
+    preds = brdf_forward(nets, batch, heads)
     eq_l, dk_l = batched_ranking_loss(
         preds["albedo"], batch["eq_point"], batch["eq_weight"],
         batch["darker_point"], batch["darker_weight"], batch["eq_num"],
@@ -109,14 +113,15 @@ def iiw_step(nets, batch: dict):
     return preds, torch.sum(eq_l) / b, torch.sum(dk_l) / b
 
 
-def nyu_step(nets, batch: dict):
+def nyu_step(nets, batch: dict, heads=tuple(HEADS)):
     """The BRDF forward and the NYU normal and depth losses (the
     reference's wrapperNYU).
 
     batch keys: im, the ground truth normal [B,h,w,3] and depth [B,h,w,1]
     at its own size (the predictions are bilinearly resized to it),
     seg_normal and seg_depth [B,h,w,1], and at cascade >= 1 the ``*_pre``
-    maps.  The depth is rescaled onto the ground truth under seg_depth
+    maps; ``heads``, the decoders to run (the losses read normal and
+    depth).  The depth is rescaled onto the ground truth under seg_depth
     (``ls_regress``, coefficient detached) first.  Returns (preds,
     losses): ``normal`` and ``depth`` (the masked errors, sums over the
     batch over the mask's pixel count, normal also over its 3 channels)
@@ -124,7 +129,7 @@ def nyu_step(nets, batch: dict):
     (computed without gradient, so arccos's slope at +-1 reaches none);
     preds gain ``normal_full`` and ``depth_full`` at the ground truth's
     size."""
-    preds = brdf_forward(nets, batch)
+    preds = brdf_forward(nets, batch, heads)
     normal_gt, depth_gt = batch["normal"], batch["depth"]
     hw = normal_gt.shape[1:3]
 

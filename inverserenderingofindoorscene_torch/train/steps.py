@@ -137,7 +137,8 @@ class BRDFTrainStep:
 class IIWTrainStep(BRDFTrainStep):
     """The IIW half of the fine-tune cycle (trainFineTuneIIW): Adam on the
     BRDF nets, loss = rank_w (eq + darker), the ranking losses of
-    :func:`iiw_step`.  Metrics: ``eq``, ``darker``, ``total``.  At
+    :func:`iiw_step`, which runs the albedo decoder alone (the others
+    take a zero gradient).  Metrics: ``eq``, ``darker``, ``total``.  At
     cascade 1 the batch carries the ``*_pre`` maps
     (``pipeline.finetune.synthesize_pre``).  ``device``, ``lr``,
     ``epoch_decay_steps``, ``optimizer`` and ``scheduler`` as in
@@ -152,14 +153,15 @@ class IIWTrainStep(BRDFTrainStep):
 
     def loss(self, batch: dict):
         batch = {k: v.to(self.device) for k, v in batch.items()}
-        _, eq_l, dk_l = iiw_step(self.brdf_nets, batch)
+        _, eq_l, dk_l = iiw_step(self.brdf_nets, batch, heads=("albedo",))
         return self.rank_w * (eq_l + dk_l), {"eq": eq_l, "darker": dk_l}
 
 
 class NYUTrainStep(BRDFTrainStep):
     """The NYU half of the fine-tune cycle (trainFineTuneNYU): Adam on the
     BRDF nets, loss = normal_w normal + depth_w depth, the losses of
-    :func:`nyu_step`.  Metrics: ``normal``, ``depth``, ``angle_deg``
+    :func:`nyu_step`, which runs the normal and depth decoders alone.
+    Metrics: ``normal``, ``depth``, ``angle_deg``
     (reported only), ``total``.  Arguments as in :class:`IIWTrainStep`."""
 
     def __init__(self, brdf_nets, normal_w: float = 4.5,
@@ -172,7 +174,8 @@ class NYUTrainStep(BRDFTrainStep):
 
     def loss(self, batch: dict):
         batch = {k: v.to(self.device) for k, v in batch.items()}
-        _, losses = nyu_step(self.brdf_nets, batch)
+        _, losses = nyu_step(self.brdf_nets, batch,
+                             heads=("normal", "depth"))
         total = self.normal_w * losses["normal"] + self.depth_w * losses[
             "depth"]
         return total, losses

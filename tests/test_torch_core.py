@@ -1,16 +1,17 @@
 """Port core numerics vs the JAX package on the same numpy inputs.
 
 Every comparison feeds float32 arrays made from a seed to both packages.
-Resizes on the serving path only enlarge (2x decoder upsamples, the
-``_match_hw`` fix-ups, the 4x light-input upsample, the cascade-1
-hand-off); ``jax.image.resize`` antialiases only when it shrinks, so
-``F.interpolate(antialias=False)`` is the same function on these sizes.
+``jax.image.resize`` antialiases where it shrinks; the port's
+``resize_bilinear`` does so exactly there and takes the plain bilinear
+kernel for upscales (the serving and training paths only enlarge), so
+both kinds are held against the JAX function.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from inverserenderingofindoorscene_tpu.core import brdf as jbrdf
@@ -119,6 +120,51 @@ def test_resize_bilinear_matches_jax(src, dst):
         torch.from_numpy(x).permute(0, 3, 1, 2), dst
     ).permute(0, 2, 3, 1).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+# downscales of a 16x16 input, and a mixed resize (height up, width
+# down): antialiased on the shrinking side, as jax.image.resize
+@pytest.mark.parametrize("src,dst", [
+    ((16, 16), (15, 15)),
+    ((16, 16), (8, 8)),
+    ((16, 16), (12, 10)),
+    ((24, 32), (32, 24)),
+])
+def test_resize_bilinear_downscale_matches_jax(src, dst):
+    x = np.random.RandomState(8).rand(2, *src, 3).astype(np.float32)
+    want = np.asarray(jimageops.resize_bilinear(jnp.asarray(x), dst))
+    got = imageops.resize_bilinear(
+        torch.from_numpy(x).permute(0, 3, 1, 2), dst
+    ).permute(0, 2, 3, 1).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-6)
+
+
+@pytest.mark.parametrize("src,dst", [((16, 16), (12, 10)),
+                                     ((24, 32), (32, 24))])
+def test_resize_bilinear_downscale_grad_matches_jax(src, dst):
+    rng = np.random.RandomState(9)
+    x = rng.rand(2, *src, 3).astype(np.float32)
+    g = rng.rand(2, *dst, 3).astype(np.float32)
+    _, vjp = jax.vjp(lambda a: jimageops.resize_bilinear(a, dst),
+                     jnp.asarray(x))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_(True)
+    imageops.resize_bilinear(xt, dst).backward(
+        torch.from_numpy(g).permute(0, 3, 1, 2))
+    np.testing.assert_allclose(xt.grad.permute(0, 2, 3, 1).numpy(), want,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("src,dst", [((8, 10), (16, 20)), ((14, 20), (15, 20)),
+                                     ((6, 10), (6, 10))])
+def test_resize_bilinear_upscale_is_the_plain_kernel(src, dst):
+    """An upscale or identity takes F.interpolate without antialiasing,
+    bit for bit, as every caller did before the antialiased downscale."""
+    x = torch.from_numpy(np.random.RandomState(10).rand(2, 5, *src)
+                         .astype(np.float32))
+    want = torch.nn.functional.interpolate(
+        x, size=dst, mode="bilinear", align_corners=False, antialias=False)
+    assert torch.equal(imageops.resize_bilinear(x, dst), want)
 
 
 @pytest.mark.parametrize("src,dst", [

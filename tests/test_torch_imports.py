@@ -2,13 +2,18 @@
 
 The machine with the card has no JAX, so a fresh interpreter imports
 every module of ``inverserenderingofindoorscene_torch`` (the training
-modules included) and ``chip_smoke`` (whose imports are all at module
-level) and then checks ``sys.modules``.
+modules, the loaders, the native decoder's bindings and the CLIs
+included) and ``chip_smoke`` (whose imports are all at module level) and
+then checks ``sys.modules``.  Imports inside functions (the loaders' cv2,
+PIL and h5py, the fixture writer's oracle) are read from the sources:
+none names JAX, the JAX package or the repository's ``tests``.
 """
 
+import ast
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -23,11 +28,13 @@ need = {"data.synthetic", "losses.masked", "train.steps", "pipeline.light",
         "ops.sg_render", "ops.bilateral", "pipeline.bilateral",
         "models.bilateral_net", "pipeline.export", "utils.io",
         "data.openrooms", "losses.ranking", "pipeline.finetune",
-        "eval.metrics"}
+        "eval.metrics", "native.hdr", "data.iiw", "data.nyu",
+        "data.fixture", "data._oracle_np", "utils.checkpoint",
+        "utils.logging", "cli.common", "cli.train_brdf", "cli.train_light"}
 assert {port.__name__ + "." + n for n in need} <= set(names)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax",
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "tests",
                                     "inverserenderingofindoorscene_tpu"))
 print(len(names), bad)
 """
@@ -41,3 +48,29 @@ def test_port_and_chip_smoke_import_no_jax():
     n_modules, loaded = int(out[0]), " ".join(out[1:])
     assert n_modules >= 30, n_modules
     assert loaded == "[]", loaded
+
+
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tests",
+             "inverserenderingofindoorscene_tpu")
+
+
+def imported_roots(path):
+    """The top-level package of every import statement in ``path``,
+    those inside functions included; a relative import gives ''."""
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            roots.add("" if node.level else node.module.split(".")[0])
+    return roots
+
+
+def test_no_module_of_the_port_imports_jax_or_tests():
+    port = Path(ROOT) / "inverserenderingofindoorscene_torch"
+    files = sorted(port.rglob("*.py")) + [Path(ROOT) / "chip_smoke.py"]
+    assert port / "data" / "fixture.py" in files
+    for path in files:
+        bad = imported_roots(path) & set(FORBIDDEN)
+        assert not bad, (path, bad)
+    assert "tests" not in imported_roots(port / "data" / "fixture.py")
