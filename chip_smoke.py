@@ -40,7 +40,7 @@ Phases, each fatal on failure:
   6. bilateral training: the bilateral train step at full width (B=2,
      image 240x320, frozen cascade-0 BRDF nets), both routes from the
      same seeded weights; step 1's losses and confidence-net gradients
-     agree, then 20 steps on each route are timed, descend, and launch
+     agree, then 10 steps on each route are timed, descend, and launch
      ``bilateral_blur`` 103 times an image a step on the kernel route;
   7. cascade recipe: the staged training recipe across the cascade
      hand-off at full width, seeded weights: 20 cascade-0 BRDF steps
@@ -56,7 +56,7 @@ Phases, each fatal on failure:
      the cascade-1 bilateral step (B=2, 10 steps a route);
   8. fine-tunes: the IIW and NYU fine-tunes at full width (B=16, IIW
      batches of 800 rows a kind in the loader's format, NYU ground truth
-     at 240x320, both from the seed), seeded weights, 10 cycles each of
+     at 240x320, both from the seed), seeded weights, 6 cycles each of
      the synthetic BRDF step (phase 7's batch) and the real-data step on
      one Adam, at cascade 0 (no kernel) and at cascade 1, where the
      frozen cascade-0 stack of phase 7 synthesizes the ``*_pre`` maps
@@ -66,7 +66,31 @@ Phases, each fatal on failure:
      specular within the serving tolerances, the fit's scales logged);
      WHDR against the batch's judgements, normal angle and si-log depth
      RMSE against the NYU ground truth, before and after the cycles
-     (random-weight numbers, held only to their ranges).
+     (random-weight numbers, held only to their ranges);
+  9. from disk: the port's fixture writers into a temp dir outside the
+     checkout (OpenRooms at 240x320 with 1920x5120 envmaps, 16 TRAIN
+     images; IIW and NYU of 16 frames), the native envmap decoder
+     bit-equal to cv2's (a cv2 fallback fails the run), the loaders'
+     items a second, ``train_brdf`` (B=16, process workers, step
+     checkpoints; then B=4 killed after a step checkpoint and resumed),
+     ``train_light`` on its checkpoint on both routes and with process
+     workers, one IIW and one NYU loader batch through the fine-tune
+     steps;
+ 10. the other CLIs from disk, on phase 9's fixtures and checkpoints:
+     ``build_cache --light`` and ``train_light --itemCache`` (2 epochs;
+     the first cached batch against the direct loader under the cache's
+     contract); ``train_bilateral`` on both routes (step 1's losses
+     within phase 6's tolerance, ``bilateral_blur`` 103 times an image a
+     step); ``train_finetune_iiw`` at cascade 0 and, where h5py imports,
+     ``output_brdf_light`` and ``train_finetune_nyu`` at cascade 1 (else
+     the cascade-1 synthesis of ``common.make_pre_synth`` alone, one
+     ``render_sg_fwd``, against the plain route); ``test_real --level 2
+     --isLight --isBS`` on 4 photos (2 ``render_sg_env`` launches a
+     photo; the first photo's lighting and refinement against the plain
+     route at the serving tolerances); ``test_synthetic`` at its three
+     stages; ``compare`` on test_real's outputs (WHDR in [0, 1], angles
+     in [0, 180]).  Each cell's times beside the card's name and power
+     limit.
 The second-to-last line of output is the kernels' JSON record, the last
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits non-zero
 before printing any result.
@@ -91,8 +115,19 @@ import torch
 
 from inverserenderingofindoorscene_torch.cli import common as cli_common
 from inverserenderingofindoorscene_torch.cli import (
+    build_cache as cli_build_cache,
+    compare as cli_compare,
+    output_brdf_light as cli_output_brdf_light,
+    test_real as cli_test_real,
+    test_synthetic as cli_test_synthetic,
+    train_bilateral as cli_train_bilateral,
     train_brdf as cli_train_brdf,
+    train_finetune_iiw as cli_finetune_iiw,
+    train_finetune_nyu as cli_finetune_nyu,
     train_light as cli_train_light,
+)
+from inverserenderingofindoorscene_torch.data.cache import (
+    CachedOpenRoomsDataset,
 )
 from inverserenderingofindoorscene_torch.data import fixture
 from inverserenderingofindoorscene_torch.data.iiw import IIWDataset
@@ -144,6 +179,7 @@ from inverserenderingofindoorscene_torch.pipeline.light import (
     light_forward,
 )
 from inverserenderingofindoorscene_torch.train.steps import (
+    BilateralTrainStep,
     BRDFTrainStep,
     LightTrainStep,
     make_bilateral_train_step,
@@ -158,15 +194,16 @@ from inverserenderingofindoorscene_torch.utils.logging import MetricLogger
 IM_HW = (240, 320)
 ENV_RC = (120, 160)
 SG_NUM = 12
-N_REQUESTS = 100
+N_REQUESTS = 50  # 100 before phase 10 was added; cut to fit the run
 N_DIRS = 128  # the 8x16 envmap
 TRAIN_B = 5  # the JAX light-training CLI's batch
 TRAIN_LR = 1e-4  # the reference's Adam rate
 N_TRAIN_STEPS = 20
+BS_TRAIN_STEPS = 10  # phase 6; 20 before phase 10, cut to fit the run
 BS_TRAIN_B = 2  # the JAX bilateral-training CLI's batch
 BRDF_TRAIN_B = 16  # the JAX CLIs' default batch (cli/common.py:34)
 IIW_MAX_NUM = 800  # the IIW loader's rows a kind (data/iiw.py:25)
-N_FT_CYCLES = 10
+N_FT_CYCLES = 6  # 10 before phase 10 was added; cut to fit the run
 N_BS_C1_STEPS = 10
 FIXTURE_IMAGES = 16  # phase 9: one TRAIN scene
 CLI_WORKERS = 4  # the CLIs' default --numWorkers
@@ -340,8 +377,11 @@ def check_close(name, got, want, rtol, atol):
 
 
 def check_rel_l1(name, got, want, tol):
-    """sum|got - want| <= tol * sum|want|; returns the max abs error."""
-    dist = float((got - want).abs().sum() / want.abs().sum())
+    """sum|got - want| <= tol * sum|want|; returns the max abs error.  Two
+    all-zero maps (a fit that dropped specular on both routes) are at
+    distance 0."""
+    diff, norm = float((got - want).abs().sum()), float(want.abs().sum())
+    dist = 0.0 if diff == 0 else diff / norm if norm else float("inf")
     if not torch.isfinite(got).all() or not dist <= tol:
         raise AssertionError(f"{name}: relative L1 distance {dist} > {tol}")
     return float((got - want).abs().max())
@@ -1237,7 +1277,7 @@ def phase_bilateral_training(seed, dev):
         f"frozen cascade-0 BRDF nets, lr {TRAIN_LR}: "
         f"{time.perf_counter() - t0:.1f} s (set-up)")
     return train_bs_routes("[bilateral training]", brdf, bs_nets, batch,
-                           N_TRAIN_STEPS, 25, dev)
+                           BS_TRAIN_STEPS, 25, dev)
 
 
 def check_brdf_f64(tag, nets, batch, dev, make_step=make_brdf_train_step,
@@ -1716,7 +1756,7 @@ class CLITimer:
     of every step taken while active).  ``kill_at``: the log call at
     which a KeyboardInterrupt is raised (a simulated preemption)."""
 
-    STEPS = (BRDFTrainStep, LightTrainStep)
+    STEPS = (BRDFTrainStep, LightTrainStep, BilateralTrainStep)
 
     def __init__(self, profile_at=None, kill_at=None):
         self.profile_at, self.kill_at = profile_at, kill_at
@@ -1888,6 +1928,7 @@ def check_loaders(root):
         f"{rates[('process', 1)]:.2f}; light items (22 MB env_gt), thread "
         f"mode, epoch 1 {rates[('thread', 0)]:.2f}, epoch 2 "
         f"{rates[('thread', 1)]:.2f}")
+    return rates
 
 
 def nets_rel_l2(a, b):
@@ -2021,8 +2062,9 @@ def train_light_cli(root, tmp, brdf_exp):
     start with ``--noKernels``; step 1's losses of the two routes within
     STEP1_TOL.  A third run, with the kernels and process workers
     (``--loaderMode process``), times the step while no loader thread of
-    this process decodes.  Returns {kernel: launches} of the kernel
-    routes' runs."""
+    this process decodes.  Returns ({kernel: launches} of the kernel
+    routes' runs, the ``CLITimer`` of the kernel route with threads, whose
+    experiment is ``light_kernels`` under ``tmp``)."""
     runs = {}
     for route, flag, mode in (("kernels", "--useKernels", "thread"),
                               ("plain", "--noKernels", "thread"),
@@ -2070,7 +2112,7 @@ def train_light_cli(root, tmp, brdf_exp):
     if bad:
         raise AssertionError(f"train_light: non-finite {bad}")
     return {k: lk[k] + runs["kernels-process"][1][k] for k in lk
-            if k not in ("render_sg_env", "bilateral_blur")}
+            if k not in ("render_sg_env", "bilateral_blur")}, tk
 
 
 def real_data_steps(roots, nets, dev):
@@ -2104,15 +2146,16 @@ def real_data_steps(roots, nets, dev):
             + ", ".join(f"{k} {v.item():.6g}" for k, v in metrics.items()))
 
 
-def phase_from_disk(seed, dev, nets):
+def phase_from_disk(seed, dev, nets, tmp):
     """The loaders and the first two training CLIs from files: fixtures
-    written outside the checkout and removed at the end, the native
-    decoder (no cv2 fallback: it raises here), ``train_brdf`` with a kill
-    and resume, ``train_light`` on its checkpoint with the kernels, and
-    the real-data loaders into the fine-tune steps.  ``nets``: phase 8's
-    cascade-0 nets by fine-tune.  Returns {kernel: launches} of the run."""
+    written under ``tmp`` (outside the checkout; the caller removes it),
+    the native decoder (no cv2 fallback: it raises here), ``train_brdf``
+    with a kill and resume, ``train_light`` on its checkpoint with the
+    kernels, and the real-data loaders into the fine-tune steps.
+    ``nets``: phase 8's cascade-0 nets by fine-tune.  Returns ({kernel:
+    launches} of the run, what phase 10 reuses: the fixture roots, the
+    two CLIs' experiments, the loader rates and the light CLI's timer)."""
     t_phase = time.perf_counter()
-    tmp = tempfile.mkdtemp(prefix="irois_from_disk_")
 
     def no_cv2(*a, **kw):
         raise AssertionError("an envmap went through cv2, not the native "
@@ -2121,16 +2164,481 @@ def phase_from_disk(seed, dev, nets):
     cv2_route = OpenRoomsDataset._load_envmap_cv2
     try:
         roots = write_fixtures(tmp, seed)
-        check_loaders(roots["openrooms"])
+        rates = check_loaders(roots["openrooms"])
         OpenRoomsDataset._load_envmap_cv2 = no_cv2
         brdf_exp = train_brdf_cli(roots["openrooms"], tmp, dev)
-        launches = train_light_cli(roots["openrooms"], tmp, brdf_exp)
+        launches, light_timer = train_light_cli(roots["openrooms"], tmp,
+                                                brdf_exp)
         real_data_steps(roots, nets, dev)
     finally:
         OpenRoomsDataset._load_envmap_cv2 = cv2_route
-        shutil.rmtree(tmp, ignore_errors=True)
-    log(f"[from disk] phase 9: {time.perf_counter() - t_phase:.1f} s, "
-        f"the fixtures and checkpoints under {tmp} removed")
+    log(f"[from disk] phase 9: {time.perf_counter() - t_phase:.1f} s")
+    return launches, {"dev": dev, "tmp": tmp, "roots": roots,
+                      "brdf_exp": brdf_exp,
+                      "light_exp": os.path.join(tmp, "light_kernels"),
+                      "rates": rates, "light_timer": light_timer}
+
+
+# --------------------------------------------------------------- phase 10
+
+PHOTOS = {"iiw": ("iiw0000.png", "iiw0001.png"),
+          "nyu": ("images/frame0000.png", "images/frame0001.png")}
+CACHE_EPOCHS = 2
+FT_STEPS = 2  # epochs of one cycle (16 images, B=16)
+EVAL_B, EVAL_STEPS = 4, 2  # test_synthetic's default batch; batches a stage
+BS_CLI_STEPS = 2
+# phase 10's BRDF-stage loaders take 4 thread workers: a spawned pool
+# costs 9-15 s a CLI to start (phase 9 measures the process workers)
+THREADS = ("--numWorkers", CLI_WORKERS, "--loaderMode", "thread")
+
+
+def launch_delta(fn):
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after.  Returns (its result, {kernel: launches})."""
+    reset_launches()
+    out = fn()
+    return out, read_launches()
+
+
+def expect_launches(tag, got, **want):
+    want = {**dict.fromkeys(KERNELS, 0), **want}
+    if got != want:
+        raise AssertionError(f"{tag}: launches {got}, expected {want}")
+
+
+def finite_lines(tag, timer, n):
+    if len(timer.lines) != n:
+        raise AssertionError(f"{tag}: {len(timer.lines)} steps logged, "
+                             f"expected {n}")
+    bad = sorted({k for _, _, m in timer.lines for k, v in m.items()
+                  if not np.isfinite(v)})
+    if bad:
+        raise AssertionError(f"{tag}: non-finite {bad}")
+
+
+def spread(times):
+    return (f"median {statistics.median(times):.3f}, min {min(times):.3f}, "
+            f"max {max(times):.3f} over {len(times)}")
+
+
+def rounded(times):
+    return [round(x, 3) for x in times]
+
+
+def cell_cache(ctx, smi):
+    """cli-cache: ``build_cache --light`` over the TRAIN images, cold;
+    the cached loader's items a second, epochs 1 and 2; its first batch
+    against the direct loader's under the cache's contract; then
+    ``train_light --itemCache`` for 2 epochs, beside phase 9's run on the
+    direct loader.  Returns {kernel: launches} of the train_light run."""
+    root, tmp = ctx["roots"]["openrooms"], ctx["tmp"]
+    cache = os.path.join(tmp, "cache")
+    t0 = time.perf_counter()
+    cli_build_cache.main(cli_args(
+        root, os.path.join(tmp, "unused"), "--itemCache", cache, "--light",
+        "--phases", "TRAIN", "--numWorkers", CLI_WORKERS))
+    build_s = time.perf_counter() - t0
+
+    def light_ds():
+        return OpenRoomsDataset(root, im_hw=IM_HW, env_rc=ENV_RC,
+                                is_light=True, is_all_light=True,
+                                sg_num=SG_NUM)
+
+    cached = CachedOpenRoomsDataset(light_ds(), cache, verbose=False)
+    if not cached.reused:
+        raise AssertionError("build_cache left no complete cache")
+    it = BatchIterator(cached, TRAIN_B, num_workers=CLI_WORKERS)
+    rates = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        n = sum(len(batch["name"]) for batch in it)
+        rates.append(n / (time.perf_counter() - t0))
+    first = {}
+    for name, ds in (("cached", cached), ("direct", light_ds())):
+        batch = next(iter(BatchIterator(ds, TRAIN_B, num_workers=0)))
+        first[name] = {k: (v if k == "name" else np.array(v))
+                       for k, v in batch.items()}
+    c, d = first["cached"], first["direct"]
+    if set(c) != set(d) or c["name"] != d["name"]:
+        raise AssertionError("the cached batch's keys or names differ")
+    for k in d:
+        if k == "name":
+            continue
+        if k == "env_gt":
+            ok = np.allclose(c[k], d[k], rtol=3e-6, atol=1e-7)
+        else:
+            ok = np.array_equal(c[k], d[k])
+        if not ok:
+            raise AssertionError(f"cached batch {k} breaks the cache's "
+                                 "contract against the direct loader")
+    env_rel = float(np.max(np.abs(c["env_gt"] - d["env_gt"])
+                           / np.maximum(np.abs(d["env_gt"]), 1e-30)))
+    size = sum(os.path.getsize(os.path.join(cached.dir, f))
+               for f in os.listdir(cached.dir))
+    direct = ctx["rates"]
+    log(f"[cli-cache] build_cache --light, {FIXTURE_IMAGES} TRAIN items at "
+        f"{IM_HW[0]}x{IM_HW[1]} ({ENV_RC[0] * 16}x{ENV_RC[1] * 32} "
+        f"envmaps), {CLI_WORKERS} threads, cold: {build_s:.2f} s, "
+        f"{size / 2**20:.1f} MiB; cached loader items/s (B={TRAIN_B}, "
+        f"{CLI_WORKERS} thread workers) epoch 1 {rates[0]:.2f}, epoch 2 "
+        f"{rates[1]:.2f} (phase 9's direct light loader, same workers: "
+        f"epoch 1 {direct[('thread', 0)]:.2f}, epoch 2 "
+        f"{direct[('thread', 1)]:.2f}); first batch against the direct "
+        f"loader: every field bit-equal but env_gt, within relative "
+        f"{env_rel:.3e}; {smi}")
+
+    steps = CACHE_EPOCHS * (FIXTURE_IMAGES // TRAIN_B)
+    with CLITimer(profile_at=2) as timer:
+        _, launches = launch_delta(lambda: cli_train_light.main(cli_args(
+            root, os.path.join(tmp, "light_cached"), "--batchSize", TRAIN_B,
+            "--numWorkers", CLI_WORKERS, "--nepoch", CACHE_EPOCHS,
+            "--itemCache", cache, "--brdfExperiment", ctx["brdf_exp"])))
+    finite_lines("train_light --itemCache", timer, steps)
+    expect_launches("train_light --itemCache", launches,
+                    **{k: steps for k in ("render_sg_fwd", "render_sg_bwd",
+                                          "sg_envmap_fwd", "sg_envmap_bwd")})
+    ref = ctx["light_timer"]
+    log(f"[cli-cache] train_light c0 B={TRAIN_B}, --itemCache, "
+        f"{CLI_WORKERS} thread workers, {CACHE_EPOCHS} epochs of "
+        f"{steps // CACHE_EPOCHS} steps: step ms (after step 1) "
+        f"{spread(timer.times['step'][1:])}, loader wait ms "
+        f"{spread(timer.times['loader'][1:])}; ms " + timer.summary()
+        + f"; phase 9's run on the direct loader: step ms "
+        f"{rounded(ref.times['step'])}, loader wait ms "
+        f"{rounded(ref.times['loader'])}; {smi}")
+    return launches
+
+
+def cell_bilateral(ctx, smi):
+    """cli-c0-bs: ``train_bilateral`` at cascade 0, B=2, on phase 9's BRDF
+    checkpoint, 2 steps on each route from the same seed: step 1's
+    losses within phase 6's tolerance, ``bilateral_blur`` launched
+    BLURS_FWD + BLURS_GRAD times an image a step.  Returns the kernel
+    route's launches."""
+    root, tmp = ctx["roots"]["openrooms"], ctx["tmp"]
+    runs = {}
+    for route, flag in (("kernels", "--useKernels"), ("plain", "--noKernels")):
+        with CLITimer(profile_at=2) as timer:
+            _, launches = launch_delta(lambda: cli_train_bilateral.main(
+                cli_args(root, os.path.join(tmp, "bs_" + route),
+                         "--batchSize", BS_TRAIN_B, *THREADS, "--maxSteps",
+                         BS_CLI_STEPS, "--brdfExperiment", ctx["brdf_exp"],
+                         flag)))
+        finite_lines(f"train_bilateral {route}", timer, BS_CLI_STEPS)
+        runs[route] = (timer, launches)
+    blurs = BS_CLI_STEPS * BS_TRAIN_B * (BLURS_FWD + BLURS_GRAD)
+    expect_launches("train_bilateral kernels", runs["kernels"][1],
+                    bilateral_blur=blurs)
+    expect_launches("train_bilateral plain", runs["plain"][1])
+    mk, mp = runs["kernels"][0].lines[0][2], runs["plain"][0].lines[0][2]
+    nvert = {k: v for k, v in mk.items() if k.startswith("nvert")}
+    if nvert != {k: v for k, v in mp.items() if k.startswith("nvert")}:
+        raise AssertionError(f"train_bilateral grids differ: {mk} vs {mp}")
+    dist = {k: abs(mk[k] / mp[k] - 1.0) for k in mk if k not in nvert}
+    log(f"[cli-c0-bs] train_bilateral c0 B={BS_TRAIN_B}, {BS_CLI_STEPS} "
+        "steps a route on train_brdf's checkpoint: step 1, kernel route vs "
+        "plain route, relative differences "
+        + ", ".join(f"{k} {v:.3e}" for k, v in dist.items())
+        + f"; grid vertices {nvert}; bilateral_blur launches "
+        f"{runs['kernels'][1]['bilateral_blur']} ({BLURS_FWD + BLURS_GRAD} "
+        "an image a step, phase 6's count); ms, kernel route "
+        + runs["kernels"][0].summary() + "; plain route "
+        + runs["plain"][0].summary() + f"; {smi}")
+    if not max(dist.values()) <= BS_STEP1_TOL["losses"]:
+        raise AssertionError(f"train_bilateral step 1 losses: {dist}")
+    return runs["kernels"][1]
+
+
+def finetune_args(ctx, kind, cascade, *extra):
+    roots, tmp = ctx["roots"], ctx["tmp"]
+    if kind == "iiw":
+        data = ["--iiwRoot", roots["iiw"], "--iiwList",
+                os.path.join(roots["iiw"], "IIWTrain.txt")]
+    else:
+        data = ["--nyuList", os.path.join(roots["nyu"], "NYUTrain.txt")]
+        for sub, name in (("Im", "images"), ("Normal", "normals"),
+                          ("Depth", "depths"), ("Seg", "segs")):
+            data += [f"--nyu{sub}Root", os.path.join(roots["nyu"], name)]
+    return cli_args(roots["openrooms"],
+                    os.path.join(tmp, f"ft_{kind}{cascade}"), "--batchSize",
+                    BRDF_TRAIN_B, *THREADS, "--nepoch", FT_STEPS,
+                    "--maxSteps", 1, "--cascadeLevel", cascade, *data,
+                    *extra)
+
+
+def cell_finetune(ctx, smi, h5py_ok):
+    """cli-ft: ``train_finetune_iiw`` at cascade 0, 2 cycles at B=16 from
+    phase 9's BRDF checkpoint; then ``train_finetune_nyu`` at cascade 1,
+    where each NYU batch's ``*_pre`` maps come from phase 9's cascade-0
+    checkpoints through ``common.make_pre_synth`` (one ``render_sg_fwd``
+    a cycle).  Without h5py (the synthetic cascade-1 batches read
+    ``.h5`` files) the CLI's synthesis alone runs, on a NYU loader batch,
+    and is held against the plain route.  Returns the launches."""
+    torch.cuda.reset_peak_memory_stats()
+    with CLITimer() as timer:
+        _, launches = launch_delta(lambda: cli_finetune_iiw.main(
+            finetune_args(ctx, "iiw", 0, "--brdfExperiment",
+                          ctx["brdf_exp"])))
+    finite_lines("train_finetune_iiw", timer, FT_STEPS)
+    expect_launches("train_finetune_iiw", launches)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    st = timer.times["step"]
+    log(f"[cli-ft] train_finetune_iiw c0 B={BRDF_TRAIN_B}, {FT_STEPS} cycles "
+        f"(the synthetic BRDF step, then the IIW step, one Adam): the "
+        f"synthetic step ms {rounded(st[0::2])}, the IIW step ms "
+        f"{rounded(st[1::2])}, loader waits ms "
+        f"{rounded(timer.times['loader'])}, staging ms "
+        f"{rounded(timer.times['stage'])}, saves ms "
+        f"{rounded(timer.times['save'])}; peak device memory {peak:.0f} MiB; "
+        + ", ".join(f"{k} {v:.6g}" for k, v in timer.lines[-1][2].items())
+        + f"; {smi}")
+
+    frozen = ["--brdf0Experiment", ctx["brdf_exp"], "--light0Experiment",
+              ctx["light_exp"]]
+    if h5py_ok:
+        torch.cuda.reset_peak_memory_stats()
+        with CLITimer() as timer:
+            _, got = launch_delta(lambda: cli_finetune_nyu.main(
+                finetune_args(ctx, "nyu", 1, *frozen)))
+        finite_lines("train_finetune_nyu c1", timer, FT_STEPS)
+        expect_launches("train_finetune_nyu c1", got, render_sg_fwd=FT_STEPS)
+        st = timer.times["step"]
+        log(f"[cli-ft] train_finetune_nyu c1 B={BRDF_TRAIN_B}, {FT_STEPS} "
+            f"cycles, *_pre synthesized inline: the synthetic step ms "
+            f"{rounded(st[0::2])}, the NYU step ms {rounded(st[1::2])}; "
+            f"peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; "
+            f"launches {got}; {smi}")
+        return {k: launches[k] + got[k] for k in KERNELS}
+    dev = ctx["dev"]
+    opt = cli_finetune_nyu.parse_args(finetune_args(ctx, "nyu", 1, *frozen))
+    gen = torch.Generator().manual_seed(opt.seed + 7)
+    synth, got = launch_delta(
+        lambda: cli_common.make_pre_synth(opt, gen, dev))
+    expect_launches("make_pre_synth set-up", got)
+    batch = cli_common.stage_batch(next(iter(BatchIterator(NYUDataset(
+        opt.nyuImRoot, opt.nyuNormalRoot, opt.nyuDepthRoot, opt.nyuSegRoot,
+        opt.nyuList, im_hw=IM_HW), BRDF_TRAIN_B, num_workers=CLI_WORKERS))),
+        dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, got = launch_delta(lambda: synth(batch))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    expect_launches("make_pre_synth", got, render_sg_fwd=1)
+    log(f"[cli-ft] train_finetune_nyu --cascadeLevel 1's synthesis "
+        f"(common.make_pre_synth on phase 9's cascade-0 checkpoints) on one "
+        f"NYU loader batch B={BRDF_TRAIN_B}: {ms:.3f} ms (cuDNN's autotuning "
+        f"included), launches {got}; {smi}")
+    brdf0, light0 = cli_common.load_frozen_cascade0(opt, gen, dev)
+    synth_routes("[cli-ft]", brdf0.to(dev), light0.to(dev), batch)
+    return {k: launches[k] + got[k] for k in KERNELS}
+
+
+class PhotoTimer:
+    """Times ``test_real``'s three parts a photo while it runs: the read
+    and resize (``load_real_image``, on a reader thread), the chain
+    (``InverseRenderer.__call__``, ending in a synchronize) and the
+    writes; keeps the first chain call's arguments and output."""
+
+    def __init__(self):
+        self.times = {"read": [], "chain": [], "write": []}
+        self.first = None
+        self._saved = []
+
+    def __enter__(self):
+        timer = self
+
+        def timed(key, orig, keep=False):
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = orig(*a, **kw)
+                torch.cuda.synchronize()
+                timer.times[key].append((time.perf_counter() - t0) * 1e3)
+                if keep and timer.first is None:
+                    timer.first = (a, out)
+                return out
+            return run
+
+        for owner, name, key, keep in (
+                (cli_test_real, "load_real_image", "read", False),
+                (InverseRenderer, "__call__", "chain", True),
+                (cli_test_real, "write_products", "write", False)):
+            orig = getattr(owner, name)
+            self._saved.append((owner, name, orig))
+            setattr(owner, name, timed(key, orig, keep))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._saved):
+            setattr(owner, name, orig)
+        return False
+
+
+def cell_test_real(ctx, smi):
+    """cli-test-real: ``test_real --level 2 --isLight --isBS`` on 4 photos
+    (two IIW and two NYU fixture frames of 480x640, written with cv2) at
+    the default 240x320, phase 9's cascade-0 checkpoints at level 0 and
+    seeded nets at level 1, unit confidence; the first photo's lighting
+    and refinement held against the plain route on the same inputs at
+    the serving tolerances (phase 4's checks).  Returns (launches, the
+    output dir)."""
+    import cv2
+
+    tmp, roots = ctx["tmp"], ctx["roots"]
+    photos = os.path.join(tmp, "photos")
+    os.makedirs(photos)
+    paths = []
+    for kind, rels in PHOTOS.items():
+        for rel in rels:
+            im = cv2.imread(os.path.join(roots[kind], rel))
+            if im is None or im.shape[:2] != (480, 640):
+                raise AssertionError(f"fixture frame {rel} is not 480x640")
+            paths.append(os.path.join(photos, os.path.basename(rel)))
+            cv2.imwrite(paths[-1], im)
+    im_list = os.path.join(photos, "list.txt")
+    with open(im_list, "w") as f:
+        f.write("\n".join(paths) + "\n")
+    out = os.path.join(tmp, "real")
+    argv = ["--imList", im_list, "--output", out, "--level", "2",
+            "--isLight", "--isBS", "--device", "cuda",
+            "--experimentBRDF0", ctx["brdf_exp"],
+            "--experimentLight0", ctx["light_exp"]]
+    with PhotoTimer() as timer:
+        _, launches = launch_delta(lambda: cli_test_real.main(argv))
+    n = len(paths)
+    expect_launches("test_real", launches, render_sg_env=2 * n,
+                    bilateral_blur=2 * BLURS_FWD * n)
+    for path in paths:
+        name = os.path.splitext(os.path.basename(path))[0]
+        for lvl in range(2):
+            for prod in ("albedo", "normal", "rough", "depth", "albedoBS",
+                         "depthBS", "envmapSG", "cLight"):
+                arr = np.load(os.path.join(out, f"{name}_{prod}{lvl}.npy"))
+                if not np.isfinite(arr).all():
+                    raise AssertionError(f"test_real {name} {prod}{lvl}")
+    (renderer, im, im_small, fov), result = timer.first
+    if fov != 57.0:
+        raise AssertionError(f"a landscape photo's fov is {fov}")
+    worst, nverts = {}, {}
+    check_shapes(result)
+    check_lighting(renderer._nets, im, im_small, result, worst)
+    check_refinement(im, renderer._bs_nets, result, worst, nverts)
+    t = timer.times
+    log(f"[cli-test-real] test_real --level 2 --isLight --isBS, {n} photos "
+        f"of 480x640 at {IM_HW[0]}x{IM_HW[1]}: ms a photo, read and resize "
+        f"{rounded(t['read'])} (reader threads, ahead of the chain), chain "
+        f"{rounded(t['chain'])} (photo 1: cuDNN's autotuning), writes "
+        f"{rounded(t['write'])}; launches {launches}; the first photo "
+        "against the plain route on the same inputs, max err "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()) + f"; {smi}")
+    return launches, out
+
+
+def cell_eval(ctx, smi, real_out):
+    """cli-eval: ``test_synthetic`` at cascade 0 (brdf, light and bilateral
+    stages) on the TEST split, then ``compare`` on cli-test-real's
+    outputs: WHDR on the IIW photos, normal angle and si-log depth on the
+    NYU ones.  Returns the launches."""
+    root, tmp = ctx["roots"]["openrooms"], ctx["tmp"]
+    # phase 9's fixture has one TRAIN scene and no TEST scene: the TEST
+    # list names the TRAIN scene, as the JAX CLI tests' fixture does
+    with open(os.path.join(root, "train.txt")) as f, \
+            open(os.path.join(root, "test.txt"), "w") as g:
+        g.write(f.read())
+    launches = dict.fromkeys(KERNELS, 0)
+    want = {"brdf": {},
+            "light": {"render_sg_fwd": EVAL_STEPS,
+                      "sg_envmap_fwd": EVAL_STEPS},
+            "bilateral": {"bilateral_blur": EVAL_STEPS * EVAL_B * BLURS_FWD}}
+    for stage, expected in want.items():
+        t0 = time.perf_counter()
+        means, got = launch_delta(lambda: cli_test_synthetic.main(cli_args(
+            root, os.path.join(tmp, "unused"), "--stage", stage,
+            "--testRoot", os.path.join(tmp, "test_" + stage),
+            "--brdfExperiment", ctx["brdf_exp"], "--lightExperiment",
+            ctx["light_exp"], "--batchSize", EVAL_B, "--maxSteps",
+            EVAL_STEPS, *THREADS)))
+        ms = (time.perf_counter() - t0) * 1e3
+        expect_launches(f"test_synthetic {stage}", got, **expected)
+        if not all(np.isfinite(v) for v in means.values()):
+            raise AssertionError(f"test_synthetic {stage}: {means}")
+        log(f"[cli-eval] test_synthetic --stage {stage} c0, {EVAL_STEPS} "
+            f"batches of {EVAL_B}: {ms:.1f} ms (set-up included); "
+            + ", ".join(f"{k} {v:.6g}" for k, v in means.items())
+            + f"; launches {got}")
+        launches = {k: launches[k] + got[k] for k in KERNELS}
+    roots = ctx["roots"]
+    gt = {"whdr": roots["iiw"],
+          "normal": os.path.join(roots["nyu"], "normals"),
+          "depth": os.path.join(roots["nyu"], "depths")}
+    scores = {m: cli_compare.main([m, "--predRoot", real_out, "--gtRoot", g])
+              for m, g in gt.items()}
+    if not (all(np.isfinite(v) for v in scores.values())
+            and 0.0 <= scores["whdr"] <= 1.0
+            and 0.0 <= scores["normal"] <= 180.0):
+        raise AssertionError(f"compare out of range: {scores}")
+    log("[cli-eval] compare on test_real's level-1 outputs (random-weight "
+        "numbers, held to their ranges): "
+        + ", ".join(f"{k} {v:.6g}" for k, v in scores.items()) + f"; {smi}")
+    return launches
+
+
+def cell_export(ctx, smi):
+    """``output_brdf_light`` at cascade 0 over the TRAIN split on phase 9's
+    checkpoints: seven files an image.  Returns its launches."""
+    root = ctx["roots"]["openrooms"]
+    t0 = time.perf_counter()
+    _, got = launch_delta(lambda: cli_output_brdf_light.main(cli_args(
+        root, os.path.join(ctx["tmp"], "unused"), "--brdfExperiment",
+        ctx["brdf_exp"], "--lightExperiment", ctx["light_exp"],
+        "--batchSize", 4, *THREADS)))
+    n = FIXTURE_IMAGES // 4
+    expect_launches("output_brdf_light", got, render_sg_fwd=n,
+                    sg_envmap_fwd=n)
+    log(f"[cli-export] output_brdf_light c0, {FIXTURE_IMAGES} images: "
+        f"{time.perf_counter() - t0:.1f} s; launches {got}; {smi}")
+    return got
+
+
+def phase_clis(ctx, smi):
+    """Phase 10: the other CLIs from disk, on phase 9's fixtures and
+    checkpoints.  Returns {kernel: launches} of the phase; each of the
+    four forward kernels must have launched."""
+    t_phase = time.perf_counter()
+    h5py_ok = probe_import("h5py").endswith("imports")
+    launches = dict.fromkeys(KERNELS, 0)
+
+    def add(got):
+        for k in KERNELS:
+            launches[k] += got[k]
+
+    def cell(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        log(f"[time] cell {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    add(cell("cli-cache", cell_cache, ctx, smi))
+    add(cell("cli-c0-bs", cell_bilateral, ctx, smi))
+    if h5py_ok:
+        add(cell("cli-export", cell_export, ctx, smi))
+    else:
+        log("[cli] h5py does not import here: output_brdf_light and "
+            "train_finetune_nyu --cascadeLevel 1 (whose synthetic batches "
+            "read the exported *_pre .h5 files) are not run; both refuse "
+            "at start-up without h5py")
+    add(cell("cli-ft", cell_finetune, ctx, smi, h5py_ok))
+    got, real_out = cell("cli-test-real", cell_test_real, ctx, smi)
+    add(got)
+    add(cell("cli-eval", cell_eval, ctx, smi, real_out))
+    missing = [k for k in ("render_sg_env", "render_sg_fwd", "sg_envmap_fwd",
+                           "bilateral_blur") if not launches[k]]
+    if missing:
+        raise AssertionError(f"phase 10 never launched {missing}")
+    log(f"[cli] phase 10: {time.perf_counter() - t_phase:.1f} s; launches "
+        f"{launches}; {smi}")
     return launches
 
 
@@ -2143,24 +2651,50 @@ def main(argv=None):
               "needs a CUDA card", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
+    clock = [time.perf_counter()] * 2  # start, last mark
+
+    def mark(phase):
+        now = time.perf_counter()
+        log(f"[time] phase {phase}: {now - clock[1]:.1f} s "
+            f"({now - clock[0]:.1f} s since the start)")
+        clock[1] = now
+
     smi = phase_device()
     ptxas = phase_build()
+    mark("1-2 device and build")
     records = phase_kernels(args.seed, dev, ptxas)
+    mark("3 kernels")
     launches = phase_serving(args.seed)
+    mark("4 serving")
     launches.update(phase_training(args.seed, dev))
+    mark("5 training")
     # bilateral_blur's count: the serving run's and the bilateral training
     # runs' together
     launches["bilateral_blur"] += phase_bilateral_training(
         args.seed, dev)["bilateral_blur"]
+    mark("6 bilateral training")
     # the cascade recipe's launches: the export's, the cascade-1 light and
     # bilateral steps'
     cascade, stack = phase_cascade(args.seed, dev)
     for name, n in cascade.items():
         launches[name] += n
+    mark("7 cascade recipe")
     # the fine-tunes' launches: the cascade-1 syntheses'
     finetune, nets0 = phase_finetune(args.seed, dev, *stack)
-    # from disk: the light CLI's steps on the kernel route
-    for run in (finetune, phase_from_disk(args.seed, dev, nets0)):
+    mark("8 fine-tunes")
+    # from disk (phases 9 and 10) in a temp dir outside the checkout,
+    # removed at the end
+    tmp = tempfile.mkdtemp(prefix="irois_from_disk_")
+    try:
+        disk, ctx = phase_from_disk(args.seed, dev, nets0, tmp)
+        mark("9 from disk")
+        clis = phase_clis(ctx, smi)
+        mark("10 the other CLIs")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[from disk] the fixtures, checkpoints and outputs under {tmp} "
+        "removed")
+    for run in (finetune, disk, clis):
         for name, n in run.items():
             launches[name] += n
     for name, record in records.items():

@@ -48,8 +48,15 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                         "thread for light-stage loaders (GIL-releasing "
                         "native envmap decode, large items)")
     p.add_argument("--itemCache", default=None,
-                   help="the packed decode cache of the JAX package; not "
-                        "ported yet (an error here)")
+                   help="directory of the packed item cache "
+                        "(data/cache.py): the dataset decoded once into "
+                        "memmapped shards, an epoch a slice and the "
+                        "exposure multiply an item; unset: decode every "
+                        "epoch, as the reference does")
+    p.add_argument("--itemCacheHalf", action="store_true",
+                   help="store the cached HDR tensors (im, env_gt) as "
+                        "float16: half the bytes, ~1e-3 relative error; "
+                        "every other field stays exact")
     p.add_argument("--computeDtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="conv-stack compute dtype; the port runs float32 "
@@ -76,18 +83,55 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     return p
 
 
+def add_kernel_flags(p: argparse.ArgumentParser) -> None:
+    """``--useKernels`` (the default) / ``--noKernels``."""
+    p.add_argument("--useKernels", action="store_true", default=True,
+                   help="the hand-written CUDA kernels (default)")
+    p.add_argument("--noKernels", dest="useKernels", action="store_false",
+                   help="the kernels' plain PyTorch versions")
+
+
 def check_ported(opt) -> None:
     """Refuse the options whose code is not ported yet, never replacing
     them with something else."""
-    if getattr(opt, "itemCache", None):
-        raise NotImplementedError(
-            "--itemCache: the packed item cache (data/cache.py, "
-            "cli/build_cache.py) is not ported yet (ROADMAP Queue A, the "
-            "cache); run without it to decode every epoch")
     if getattr(opt, "computeDtype", "float32") != "float32":
         raise NotImplementedError(
             f"--computeDtype {opt.computeDtype}: the port computes in "
             "float32 only until ROADMAP A9 (bf16 and TF32)")
+    if getattr(opt, "fused", False):
+        raise NotImplementedError(
+            "--fused: the single-program chain is not ported until ROADMAP "
+            "A8 (batched serving and the fused mode); run the staged chain")
+    v_max = getattr(opt, "vMax", "full")
+    if v_max not in ("full", "auto"):
+        raise NotImplementedError(
+            f"--vMax {v_max}: the port's grids have exactly one vertex an "
+            "occupied cell, so the solve is always exact and 'full' and "
+            "'auto' both mean it; a capacity cap is left out on purpose "
+            "(ROADMAP Queue A, left out: v_max / e_max)")
+
+
+def setup_device(opt) -> torch.device:
+    """``--device`` resolved; refuses the kernels off the card, and turns
+    on cuDNN's per-shape autotuning (ROADMAP C7)."""
+    from inverserenderingofindoorscene_torch.device import resolve_device
+
+    device = resolve_device(opt.device)
+    if device.type != "cuda" and getattr(opt, "useKernels", False):
+        raise ValueError("the CUDA kernels need --device cuda; pass "
+                         "--noKernels to run their plain versions")
+    torch.backends.cudnn.benchmark = True
+    return device
+
+
+def require_h5py(what: str) -> None:
+    """Fail at start-up, not after minutes of compute, where ``what``
+    reads or writes the hand-off's ``.h5`` files and h5py is missing."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError as e:
+        raise ImportError(f"{what} reads or writes the cascade hand-off's "
+                          ".h5 files, and h5py does not import here") from e
 
 
 def default_experiment_name(opt, kind: str, offset=None,
@@ -157,18 +201,13 @@ def stage_batch(batch: dict, device, drop=("name",)) -> dict:
             for k, v in batch.items() if k not in drop}
 
 
-def make_loader(opt, phase: str, is_light: bool, shuffle=True):
-    """The OpenRooms ``BatchIterator`` of a stage.  Default prefetch:
-    process workers for BRDF-stage items (GIL-held PIL and numpy work),
-    threads for light-stage items (the GIL-releasing native envmap
-    decode, and a 22 MB ``env_gt`` that pickling would copy); threads
-    below two workers."""
+def make_dataset(opt, phase: str, is_light: bool):
+    """The OpenRooms dataset of a stage, from the common options."""
     from inverserenderingofindoorscene_torch.data.openrooms import (
-        BatchIterator,
         OpenRoomsDataset,
     )
 
-    ds = OpenRoomsDataset(
+    return OpenRoomsDataset(
         opt.dataRoot,
         im_hw=(opt.imHeight, opt.imWidth),
         phase=phase,
@@ -180,13 +219,216 @@ def make_loader(opt, phase: str, is_light: bool, shuffle=True):
         sg_num=opt.SGNum,
         seed=opt.seed,
     )
-    mode = opt.loaderMode or ("thread" if is_light else "process")
+
+
+def make_loader(opt, phase: str, is_light: bool, shuffle=True):
+    """The OpenRooms ``BatchIterator`` of a stage, over the packed item
+    cache with ``--itemCache`` (built on first use).  Default prefetch:
+    process workers for BRDF-stage items (GIL-held PIL and numpy work),
+    threads for light-stage items (the GIL-releasing native envmap
+    decode, and a 22 MB ``env_gt`` that pickling would copy) and for
+    cached items (memmap slices, which pickling would copy again);
+    threads below two workers."""
+    from inverserenderingofindoorscene_torch.data.openrooms import (
+        BatchIterator,
+    )
+
+    ds = make_dataset(opt, phase, is_light)
+    if opt.itemCache:
+        from inverserenderingofindoorscene_torch.data.cache import (
+            CachedOpenRoomsDataset,
+        )
+
+        ds = CachedOpenRoomsDataset(ds, opt.itemCache,
+                                    workers=max(opt.numWorkers, 1),
+                                    half=opt.itemCacheHalf)
+    mode = opt.loaderMode or (
+        "thread" if is_light or opt.itemCache else "process")
     if opt.numWorkers <= 1:
         mode = "thread"
     return BatchIterator(
         ds, opt.batchSize, shuffle=shuffle, num_workers=opt.numWorkers,
         seed=opt.seed, mode=mode,
     )
+
+
+def zip_max_cycle(loader_a, loader_b):
+    """Pairs of batches over an epoch of max(len) pairs, the shorter
+    loader starting again where it ends (the reference's ConcatDataset,
+    iiwDataLoader.py:14-22; ``zip`` would cut the epoch to the small
+    real-data set).  Returns (pairs, n)."""
+    import itertools
+
+    n = max(len(loader_a), len(loader_b))
+
+    def cyc(ld):
+        while True:
+            yield from ld
+
+    return itertools.islice(zip(cyc(loader_a), cyc(loader_b)), n), n
+
+
+def load_frozen_cascade0(opt, generator, device):
+    """The frozen cascade-0 BRDF and light stacks that synthesize a
+    cascade-1 real-data batch's ``*_pre`` maps
+    (trainFineTuneIIW_cascade1.py:300-362), from ``--brdf0Experiment`` /
+    ``--light0Experiment`` (default: the reference's names; at cascade 1
+    ``--brdfExperiment`` names the cascade-1 start).  A missing
+    checkpoint is an error: random frozen nets would train against
+    meaningless inputs.  Returns (brdf_nets0, light_nets0)."""
+    import copy
+
+    from inverserenderingofindoorscene_torch.cli.output_brdf_light import (
+        load_frozen_light,
+    )
+    from inverserenderingofindoorscene_torch.cli.train_light import (
+        load_frozen_brdf,
+    )
+
+    opt0 = copy.copy(opt)
+    opt0.cascadeLevel = 0
+    opt0.offset = getattr(opt, "offset", 1.0)
+    opt0.brdfExperiment = getattr(opt, "brdf0Experiment", None)
+    opt0.brdfEpoch = getattr(opt, "brdf0Epoch", None)
+    opt0.lightExperiment = getattr(opt, "light0Experiment", None)
+    opt0.lightEpoch = getattr(opt, "light0Epoch", None)
+    bexp = opt0.brdfExperiment or default_experiment_name(opt0, "brdf")
+    if opt0.brdfEpoch is None and ckpt.latest_epoch(bexp, "brdf", 0) is None:
+        raise FileNotFoundError(
+            f"the cascade-1 synthesis needs a trained cascade-0 BRDF; no "
+            f"checkpoint under {bexp!r} (--brdf0Experiment/--brdf0Epoch)")
+    lexp = opt0.lightExperiment or default_experiment_name(
+        opt0, "light", offset=opt0.offset)
+    if (opt0.lightEpoch is None
+            and ckpt.latest_epoch(lexp, "light", 0) is None):
+        raise FileNotFoundError(
+            f"the cascade-1 synthesis needs a trained cascade-0 light "
+            f"stack; no checkpoint under {lexp!r} "
+            f"(--light0Experiment/--light0Epoch)")
+    brdf_nets0 = load_frozen_brdf(opt0, generator, device)
+    light_nets0 = load_frozen_light(opt0, generator, device)
+    return brdf_nets0, light_nets0
+
+
+def make_pre_synth(opt, generator, device):
+    """The ``*_pre`` synthesis of the cascade-1 fine-tunes
+    (trainFineTune*_cascade1.py:300-374): ``pipeline/finetune.
+    synthesize_pre`` on the frozen cascade-0 stack, through the
+    ``render_sg_fwd`` kernel with ``--useKernels``.  Returns batch ->
+    batch with the seven ``*_pre`` keys."""
+    from inverserenderingofindoorscene_torch.pipeline.finetune import (
+        synthesize_pre,
+    )
+
+    bn0, ln0 = load_frozen_cascade0(opt, generator, device)
+    bn0.to(device).eval()
+    ln0.to(device).eval()
+    use_kernels = getattr(opt, "useKernels", False)
+    return lambda b: synthesize_pre(bn0, ln0, b, use_kernels=use_kernels)
+
+
+def add_finetune_args(p: argparse.ArgumentParser, lr: float,
+                      lr_help: str) -> None:
+    """The options the IIW and NYU fine-tune CLIs share."""
+    p.add_argument("--albedoWeight", type=float, default=1.5)
+    p.add_argument("--normalWeight", type=float, default=1.0)
+    p.add_argument("--roughWeight", type=float, default=0.5)
+    p.add_argument("--depthWeight", type=float, default=0.5)
+    p.add_argument("--lr", type=float, default=lr, help=lr_help)
+    p.add_argument("--brdfExperiment", default=None)
+    p.add_argument("--brdfEpoch", type=int, default=None)
+    p.add_argument("--brdf0Experiment", default=None,
+                   help="cascade-0 BRDF experiment of the inline *_pre "
+                        "synthesis at --cascadeLevel 1 (--brdfExperiment "
+                        "then names the cascade-1 start)")
+    p.add_argument("--brdf0Epoch", type=int, default=None)
+    p.add_argument("--light0Experiment", default=None,
+                   help="cascade-0 light experiment of the inline *_pre "
+                        "synthesis at --cascadeLevel 1")
+    p.add_argument("--light0Epoch", type=int, default=None)
+    add_kernel_flags(p)
+    p.set_defaults(nepoch=3)
+
+
+def run_finetune(opt, kind: str, real_ds, make_real_step) -> None:
+    """The fine-tune loop of ``train_finetune_iiw`` / ``_nyu``: each cycle
+    one synthetic batch through the BRDF step and one ``real_ds`` batch
+    through ``make_real_step(syn_step)``, on the synthetic step's Adam
+    (the JAX CLIs' one ``TrainState``), over max(len) pairs an epoch
+    (:func:`zip_max_cycle`).  At cascade 1 the real batch's ``*_pre`` maps
+    come from :func:`make_pre_synth`.  Checkpoints under the stage name
+    ``kind``; ``--resume`` as the other train CLIs."""
+    from inverserenderingofindoorscene_torch.cli.train_light import (
+        load_frozen_brdf,
+    )
+    from inverserenderingofindoorscene_torch.data.openrooms import (
+        BatchIterator,
+    )
+    from inverserenderingofindoorscene_torch.train.steps import (
+        BRDFTrainStep,
+    )
+    from inverserenderingofindoorscene_torch.utils.logging import (
+        MetricLogger,
+    )
+
+    check_ported(opt)
+    if opt.cascadeLevel > 0:
+        # the synthetic batches carry the cascade-0 *_pre files
+        require_h5py(f"train_finetune_{kind} --cascadeLevel 1")
+    device = setup_device(opt)
+    opt.experiment = opt.experiment or "check%s_cascade%d_w%d_h%d" % (
+        kind.upper(), opt.cascadeLevel, opt.imWidth, opt.imHeight)
+    exp = experiment_dir(opt, kind)
+    gen = pin_seeds(opt.seed)
+
+    # the start point, trained here (not frozen)
+    nets = load_frozen_brdf(opt, gen, device)
+    syn_loader = make_loader(opt, "TRAIN", is_light=False)
+    real_loader = BatchIterator(real_ds, opt.batchSize, seed=opt.seed,
+                                num_workers=opt.numWorkers)
+    syn_step = BRDFTrainStep(nets, opt.albedoWeight, opt.normalWeight,
+                             opt.roughWeight, opt.depthWeight, device=device,
+                             lr=opt.lr)
+    real_step = make_real_step(syn_step)
+    synth = None
+    if opt.cascadeLevel > 0:
+        synth = make_pre_synth(
+            opt, torch.Generator().manual_seed(opt.seed + 7), device)
+
+    def state():
+        return ckpt.train_state(syn_step.brdf_nets, syn_step.optimizer,
+                                syn_step.scheduler)
+
+    start_epoch, skip = resume_train_state(
+        opt, exp, kind, opt.cascadeLevel, syn_step.brdf_nets,
+        syn_step.optimizer, syn_step.scheduler)
+
+    logger = MetricLogger(f"{exp}/trainingLog.txt",
+                          flush_steps=opt.logFlushSteps)
+    try:
+        for epoch in range(start_epoch, opt.nepoch):
+            pairs, _ = zip_max_cycle(syn_loader, real_loader)
+            for j, (syn_np, real_np) in enumerate(pairs):
+                if opt.maxSteps is not None and j >= opt.maxSteps:
+                    break
+                if epoch == start_epoch and j < skip:
+                    continue  # mid-epoch resume: replay position, not steps
+                m1 = syn_step(stage_batch(syn_np, device))
+                real = stage_batch(real_np, device)
+                if synth is not None:
+                    real = synth(real)
+                m2 = real_step(real)
+                logger.log_device(epoch, j, {
+                    **{f"syn_{k}": v for k, v in m1.items()},
+                    **{f"{kind}_{k}": v for k, v in m2.items()}})
+                maybe_save_step_checkpoint(opt, exp, kind, opt.cascadeLevel,
+                                           state, epoch, j, logger=logger)
+            ckpt.save_checkpoint(exp, kind, opt.cascadeLevel, epoch, state())
+            logger.save_curves(exp, epoch)
+    finally:
+        syn_loader.close()
+        real_loader.close()
+    logger.close()
 
 
 def dump_preview(exp, epoch, step, arrays: dict):

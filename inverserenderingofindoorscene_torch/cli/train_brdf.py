@@ -17,7 +17,6 @@ from __future__ import annotations
 import torch
 
 from inverserenderingofindoorscene_torch.cli import common
-from inverserenderingofindoorscene_torch.device import resolve_device
 from inverserenderingofindoorscene_torch.pipeline.brdf import (
     BRDFNets,
     brdf_forward,
@@ -57,10 +56,9 @@ def preview(exp, epoch, j, nets, batch):
 def main(argv=None):
     opt = parse_args(argv)
     common.check_ported(opt)
-    device = resolve_device(opt.device)
-    # cuDNN's heuristic picks a slow FFT path for some f32 shapes
-    # (ROADMAP C7): autotune once per shape
-    torch.backends.cudnn.benchmark = True
+    if opt.cascadeLevel > 0:
+        common.require_h5py("train_brdf --cascadeLevel 1")
+    device = common.setup_device(opt)
     exp = common.experiment_dir(opt, "brdf")
     gen = common.pin_seeds(opt.seed)
 

@@ -13,10 +13,7 @@ Usage: python -m inverserenderingofindoorscene_torch.cli.train_light \
 
 from __future__ import annotations
 
-import torch
-
 from inverserenderingofindoorscene_torch.cli import common
-from inverserenderingofindoorscene_torch.device import resolve_device
 from inverserenderingofindoorscene_torch.pipeline.brdf import BRDFNets
 from inverserenderingofindoorscene_torch.pipeline.light import LightNets
 from inverserenderingofindoorscene_torch.train.steps import LightTrainStep
@@ -34,10 +31,7 @@ def parse_args(argv=None):
     p.add_argument("--brdfExperiment", required=False, default=None)
     p.add_argument("--brdfEpoch", type=int, default=None)
     p.add_argument("--resumeEpoch", type=int, default=None)
-    p.add_argument("--useKernels", action="store_true", default=True,
-                   help="the hand-written CUDA kernels (default)")
-    p.add_argument("--noKernels", dest="useKernels", action="store_false",
-                   help="the kernels' plain PyTorch versions")
+    common.add_kernel_flags(p)
     p.set_defaults(batchSize=5)
     return p.parse_args(argv)
 
@@ -65,12 +59,9 @@ def load_frozen_brdf(opt, generator, device) -> BRDFNets:
 def main(argv=None):
     opt = parse_args(argv)
     common.check_ported(opt)
-    device = resolve_device(opt.device)
-    if device.type != "cuda" and opt.useKernels:
-        raise ValueError("the CUDA kernels need --device cuda; pass "
-                         "--noKernels to train on their plain versions")
-    # autotune the f32 convolutions once per shape (ROADMAP C7)
-    torch.backends.cudnn.benchmark = True
+    if opt.cascadeLevel > 0:
+        common.require_h5py("train_light --cascadeLevel 1")
+    device = common.setup_device(opt)
     exp = common.experiment_dir(opt, "light")
     gen = common.pin_seeds(opt.seed)
 

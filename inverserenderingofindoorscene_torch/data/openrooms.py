@@ -334,9 +334,21 @@ class OpenRoomsDataset:
         return out, 1.0
 
     def __getitem__(self, ind):
+        return self._decode_item(ind, self._item_rng(ind))
+
+    def load_raw(self, ind):
+        """The epoch-invariant decode of item ``ind``, for the packed item
+        cache (``data/cache.py``): ``im`` unscaled with its exposure
+        ``pivot`` beside it, ``env_gt`` decoded at scale 1.  An epoch's
+        read then redoes one draw and two multiplies."""
+        return self._decode_item(ind, None)
+
+    def _decode_item(self, ind, rng):
+        """Item ``ind`` decoded: with ``rng``, the direct path (the
+        exposure applied, its scale folded into the native envmap
+        decode); with ``rng=None``, the epoch-invariant decode."""
         import scipy.ndimage as ndimage
 
-        rng = self._item_rng(ind)
         im_path = self.im_list[ind]
         paths = self._paths(im_path)
 
@@ -351,8 +363,12 @@ class OpenRoomsDataset:
         seg_obj = seg_obj.astype(np.float32)
 
         im = self._load_hdr(paths["im"])
-        scale = self._exposure_scale(self._hdr_pivot(im, seg), rng)
-        im = np.clip(scale * im, 0, 1)
+        pivot = self._hdr_pivot(im, seg)
+        if rng is None:
+            scale = 1.0
+        else:
+            scale = self._exposure_scale(pivot, rng)
+            im = np.clip(scale * im, 0, 1)
 
         albedo = self._load_ldr(paths["albedo"])
         albedo = (0.5 * (albedo + 1.0)) ** 2.2
@@ -377,6 +393,8 @@ class OpenRoomsDataset:
             "seg_all": seg_area + seg_obj,
             "name": im_path,
         }
+        if rng is None:
+            out["pivot"] = np.float32(pivot)
 
         if self.is_light:
             # the exposure scale folded into the decode
@@ -417,8 +435,10 @@ class BatchIterator:
     GIL-releasing work (the native envmap decode, cv2, h5py).
     ``mode="process"``: a persistent pool of spawned processes (items
     return by pickle), which wins where an item's cost is GIL-held numpy
-    and PIL work, as in the BRDF stage.  Each epoch calls the dataset's
-    ``set_epoch``; batches are numpy dicts (``name`` a list).  Call
+    and PIL work, as in the BRDF stage.  A dataset with ``get_batch``
+    (the packed item cache) collates its own batches, outside process
+    mode.  Each epoch calls the dataset's ``set_epoch``; batches are
+    numpy dicts (``name`` a list).  Call
     :meth:`close` to stop the process pool."""
 
     def __init__(self, dataset, batch_size, shuffle=True, num_workers=4,
@@ -469,9 +489,20 @@ class BatchIterator:
                     continue
             return False
 
+        # a dataset with get_batch (the packed cache) collates into its
+        # own recycled buffers, cheaper than items and np.stack
+        use_get_batch = hasattr(self.ds, "get_batch") and not (
+            self.mode == "process" and self.workers > 1)
+
         def produce():
             try:
-                if self.mode == "process" and self.workers > 1:
+                if use_get_batch:
+                    for idxs in batches:
+                        if abort.is_set():
+                            return
+                        if not put(self.ds.get_batch(idxs)):
+                            return
+                elif self.mode == "process" and self.workers > 1:
                     pool = self._process_pool()
                     chunk = max(1, self.bs // (2 * self.workers))
                     for idxs in batches:

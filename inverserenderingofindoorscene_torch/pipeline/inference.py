@@ -9,8 +9,10 @@ the bilateral refinement of every cascade's maps, in one call.  Public
 functions take and return NHWC tensors like the JAX package; the networks
 inside run in NCHW.
 
-Not ported yet: the fused single-program mode and its ``serialize``
-export, and ``load_real_image`` / ``render_file`` (which need OpenCV).
+:func:`load_real_image` reads a photo from disk with OpenCV (imported
+where it is called), and :meth:`InverseRenderer.render_file` runs the
+chain on it.  Not ported yet: the fused single-program mode and its
+``serialize`` export (ROADMAP A8).
 The JAX package's vertex-capacity option ``v_max`` has no counterpart:
 the port's grids have exactly as many vertices as occupied cells.
 """
@@ -44,6 +46,53 @@ from inverserenderingofindoorscene_torch.pipeline.bilateral import (
 from inverserenderingofindoorscene_torch.pipeline.light import (
     light_input_from_preds,
 )
+
+
+def load_real_image(path, im_hw, env_rc, return_original=False):
+    """A photo from disk, resized keeping its aspect, with the fov of its
+    orientation (testReal.py:290-343).
+
+    Returns (im [1,h,w,3] linear, im_small [1,eh,ew,3], fov_deg) as
+    float32 numpy; with ``return_original`` also the unresized uint8 RGB
+    photo (the reference writes it out as a product, testReal.py:
+    659-660)."""
+    import cv2
+
+    im_cpu = cv2.imread(path)
+    if im_cpu is None:
+        raise ValueError(f"cv2 cannot read {path}")
+    im_cpu = im_cpu[:, :, ::-1]
+    nh, nw = im_cpu.shape[:2]
+
+    def fit_dims(nh0, nw0, max_h, max_w):
+        if nh0 < nw0:
+            w = max_w
+            h = int(float(max_w) / nw0 * nh0)
+        else:
+            h = max_h
+            w = int(float(max_h) / nh0 * nw0)
+        return h, w
+
+    def resize_gamma(h, w, ref_h):
+        # the reference's choice, kept (testReal.py:306-309): INTER_AREA
+        # where it enlarges (ref_h < h), INTER_LINEAR where it shrinks
+        interp = cv2.INTER_AREA if ref_h < h else cv2.INTER_LINEAR
+        out = cv2.resize(im_cpu, (w, h), interpolation=interp)
+        out = out.astype(np.float32) / 255.0
+        out = out / out.max()
+        return (out ** 2.2)[None]
+
+    h0, w0 = fit_dims(nh, nw, *im_hw)
+    im = resize_gamma(h0, w0, nh)
+    # the reference fits the lighting size after `nh, nw =
+    # newImHeight[-1], newImWidth[-1]` (testReal.py:318): its target, its
+    # interpolation choice and the fov all follow the last level's dims
+    eh, ew = fit_dims(h0, w0, *env_rc)
+    im_small = resize_gamma(eh, ew, h0)
+    fov = 57.0 if h0 < w0 else 42.75
+    if return_original:
+        return im, im_small, fov, im_cpu
+    return im, im_small, fov
 
 
 def predict_brdf(brdf_nets, im, extra=None):
@@ -280,9 +329,17 @@ class InverseRenderer:
             "refined": refined,
         }
 
+    def render_file(self, path, im_hw=(240, 320), env_rc=(120, 160)):
+        """A photo from disk through the chain: :func:`load_real_image`
+        (aspect-preserving resize, gamma to linear, fov by orientation),
+        then :meth:`__call__`."""
+        im, im_small, fov = load_real_image(path, im_hw, env_rc)
+        return self(im, im_small, fov)
+
 
 __all__ = [
     "InverseRenderer",
+    "load_real_image",
     "predict_brdf",
     "predict_light_core",
     "predict_light",

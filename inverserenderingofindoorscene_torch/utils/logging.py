@@ -52,10 +52,13 @@ class MetricLogger:
             self.file.flush()
 
     def log_device(self, epoch: int, step: int, metrics: Dict):
-        """Buffered :meth:`log` of a step's device scalars."""
+        """Buffered :meth:`log` of a step's device scalars (a host
+        scalar among them, such as the bilateral step's vertex counts,
+        joins the others' device)."""
         keys = sorted(metrics)
-        vec = torch.stack([metrics[k].detach().to(torch.float32).reshape(())
-                           for k in keys])
+        dev = metrics[keys[0]].device
+        vec = torch.stack([metrics[k].detach().to(dev, torch.float32)
+                           .reshape(()) for k in keys])
         self._pend.append((epoch, step, keys, vec))
         if len(self._pend) >= self.flush_steps:
             self.flush()

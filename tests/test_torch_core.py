@@ -23,6 +23,9 @@ from inverserenderingofindoorscene_tpu.core import sphere as jsphere
 from inverserenderingofindoorscene_torch.core import brdf, camera, imageops
 from inverserenderingofindoorscene_torch.core import scale, sg, sphere
 
+import oracle_np
+from test_torch_sg_render import assert_close_naming_side
+
 ATOL = 1e-5
 
 
@@ -54,7 +57,11 @@ def test_sg_to_envmap_matches_jax():
                                        jnp.asarray(wgt)))
     got = sg.sg_to_envmap(torch.from_numpy(ax), torch.from_numpy(lamb),
                           torch.from_numpy(wgt)).numpy()
-    np.testing.assert_allclose(got, want, atol=ATOL)
+    oracle = oracle_np.sg_to_envmap_np(*(np.float64(x) for x in (ax, lamb,
+                                                                  wgt)))
+    assert_close_naming_side(
+        lambda g, w: np.testing.assert_allclose(g[0], w[0], atol=ATOL),
+        [got], [want], [oracle], ["envmap"])
 
 
 def test_unsquash_and_flat_split_match_jax():

@@ -30,7 +30,11 @@ need = {"data.synthetic", "losses.masked", "train.steps", "pipeline.light",
         "data.openrooms", "losses.ranking", "pipeline.finetune",
         "eval.metrics", "native.hdr", "data.iiw", "data.nyu",
         "data.fixture", "data._oracle_np", "utils.checkpoint",
-        "utils.logging", "cli.common", "cli.train_brdf", "cli.train_light"}
+        "utils.logging", "cli.common", "cli.train_brdf", "cli.train_light",
+        "data.cache", "cli.build_cache", "cli.train_bilateral",
+        "cli.train_finetune_iiw", "cli.train_finetune_nyu",
+        "cli.output_brdf_light", "cli.test_synthetic", "cli.test_real",
+        "cli.compare"}
 assert {port.__name__ + "." + n for n in need} <= set(names)
 import chip_smoke
 bad = sorted(m for m in sys.modules

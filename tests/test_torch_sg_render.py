@@ -19,6 +19,8 @@ from inverserenderingofindoorscene_tpu.core.camera import view_dirs
 from inverserenderingofindoorscene_tpu.ops import sg_render as jsg_render
 from inverserenderingofindoorscene_torch.ops import sg_render
 
+import oracle_np
+
 
 def make_inputs(b=1, h=10, w=13, k=12, seed=0, normal_scale=0.97):
     """The JAX kernel tests' input distribution, as float32 numpy."""
@@ -45,6 +47,30 @@ def assert_outputs_close(got, want):
     np.testing.assert_allclose(e, e0, rtol=2e-5, atol=1e-5, err_msg="env")
 
 
+def oracle_outputs(args, fov=57.0, f0=0.05, env_height=8, env_width=16):
+    """diffuse, specular, env of ``render_sg_env``'s inputs in float64,
+    from tests/oracle_np.py."""
+    albedo, normal, rough, ax, lamb, wgt = (np.float64(x) for x in args)
+    env = oracle_np.sg_to_envmap_np(ax, lamb, wgt, env_height, env_width)
+    d, s = oracle_np.render_envmap_np(albedo, normal, rough, env, fov, f0,
+                                      env_height, env_width)
+    return d, s, env
+
+
+def assert_close_naming_side(check, got, want, oracle, names):
+    """``check(got, want)``; where it fails, the message also gives each
+    side's largest distance from the float64 ``oracle``, output by output
+    (``names``), so a failure says which side moved (ROADMAP C18)."""
+    try:
+        check(got, want)
+    except AssertionError as e:
+        lines = [f"{n}: max |got - float64| "
+                 f"{np.abs(np.float64(g) - o).max():.3g}, max |want - "
+                 f"float64| {np.abs(np.float64(w) - o).max():.3g}"
+                 for n, g, w, o in zip(names, got, want, oracle)]
+        raise AssertionError(f"{e}\n" + "\n".join(lines)) from None
+
+
 @pytest.mark.parametrize("k", [4, 12])
 @pytest.mark.parametrize("fov", [57.0, 42.75])
 def test_render_sg_env_matches_jax(k, fov):
@@ -55,7 +81,10 @@ def test_render_sg_env_matches_jax(k, fov):
     before = sg_render.render_sg_env.launches
     got = sg_render.render_sg_env(*map(torch.from_numpy, args), fov_deg=fov)
     assert got[2].shape == (1, 10, 13, 128, 3)
-    assert_outputs_close([x.numpy() for x in got], want)
+    assert_close_naming_side(assert_outputs_close, [x.numpy() for x in got],
+                             [np.asarray(x) for x in want],
+                             oracle_outputs(args, fov),
+                             ("diffuse", "specular", "env"))
     # a CPU call runs the plain version and launches nothing
     assert sg_render.render_sg_env.launches == before
 

@@ -39,7 +39,12 @@ import torch
 
 from inverserenderingofindoorscene_tpu.ops import sg_render as jsg_render
 from inverserenderingofindoorscene_torch.ops import sg_render
-from test_torch_sg_render import assert_outputs_close, make_inputs
+from test_torch_sg_render import (
+    assert_close_naming_side,
+    assert_outputs_close,
+    make_inputs,
+    oracle_outputs,
+)
 from test_torch_sg_render_host import build_host
 
 # the kernel's warps and lanes one after another, with the kernel's C
@@ -235,7 +240,9 @@ def test_render_sg_env_lanes_match(render_sg_env_host, case, reference):
         want = jsg_render.render_sg_env(
             *map(jnp.asarray, args), fov_deg=FOV, f0=F0, env_height=eh,
             env_width=ew, interpret=True)
-    assert_outputs_close(got, want)
+    assert_close_naming_side(
+        assert_outputs_close, got, [np.asarray(x) for x in want],
+        oracle_outputs(args, FOV, F0, eh, ew), ("diffuse", "specular", "env"))
 
 
 @pytest.mark.parametrize("reference", ["plain", "pallas"])
