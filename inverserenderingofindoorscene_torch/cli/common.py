@@ -57,10 +57,6 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    help="store the cached HDR tensors (im, env_gt) as "
                         "float16: half the bytes, ~1e-3 relative error; "
                         "every other field stays exact")
-    p.add_argument("--computeDtype", default="float32",
-                   choices=["float32", "bfloat16"],
-                   help="conv-stack compute dtype; the port runs float32 "
-                        "only (bfloat16 is an error here)")
     p.add_argument("--saveEvery", type=int, default=1,
                    help="epochs between checkpoints")
     p.add_argument("--maxSteps", type=int, default=None,
@@ -83,6 +79,16 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     return p
 
 
+def add_dtype_flag(p: argparse.ArgumentParser, default: str) -> None:
+    """``--computeDtype``: the conv stacks' compute dtype (the CLIs whose
+    JAX counterparts take it: train_brdf and train_light default to
+    bfloat16, test_real to float32)."""
+    p.add_argument("--computeDtype", default=default,
+                   choices=["float32", "bfloat16"],
+                   help="conv-stack compute dtype (params and heads stay "
+                        "float32)")
+
+
 def add_kernel_flags(p: argparse.ArgumentParser) -> None:
     """``--useKernels`` (the default) / ``--noKernels``."""
     p.add_argument("--useKernels", action="store_true", default=True,
@@ -94,10 +100,6 @@ def add_kernel_flags(p: argparse.ArgumentParser) -> None:
 def check_ported(opt) -> None:
     """Refuse the options whose code is not ported yet, never replacing
     them with something else."""
-    if getattr(opt, "computeDtype", "float32") != "float32":
-        raise NotImplementedError(
-            f"--computeDtype {opt.computeDtype}: the port computes in "
-            "float32 only until ROADMAP A9 (bf16 and TF32)")
     if getattr(opt, "fused", False):
         raise NotImplementedError(
             "--fused: the single-program chain is not ported until ROADMAP "

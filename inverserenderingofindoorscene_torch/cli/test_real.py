@@ -10,7 +10,8 @@ bilateral refinement of albedo / rough / depth; then the npy / png / npz
 products, each level's.  The lighting runs on the ``render_sg_env``
 kernel, twice a photo at level 2, and the refinement's blur on
 ``bilateral_blur`` (``--noKernels``: their plain versions;
-``--device cpu`` needs it).
+``--device cpu`` needs it).  ``--computeDtype bfloat16`` runs both
+stacks' convolutions in bf16 (float32 by default, as in the JAX CLI).
 
 Usage: python -m inverserenderingofindoorscene_torch.cli.test_real \
     --imList images.txt --output out/ [--level 2] [--isLight] [--isBS]
@@ -79,10 +80,7 @@ def parse_args(argv=None):
                         "both the exact grid here; an integer cap is not "
                         "ported")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--computeDtype", default="float32",
-                   choices=["float32", "bfloat16"],
-                   help="conv-stack compute dtype; the port runs float32 "
-                        "only (bfloat16 is an error here)")
+    common.add_dtype_flag(p, "float32")
     p.add_argument("--fused", action="store_true",
                    help="the single-program chain; not ported (an error "
                         "here)")
@@ -98,11 +96,13 @@ def load_stack(opt, device):
     gen = torch.Generator().manual_seed(opt.seed)
     stacks = []
     for lvl in range(opt.level):
-        brdf = BRDFNets(cascade_level=lvl, generator=gen)
+        brdf = BRDFNets(cascade_level=lvl, generator=gen,
+                        compute_dtype=opt.computeDtype)
         light = LightNets(
             sg_num=opt.SGNum, cascade_level=lvl, env_rows=opt.envRow,
             env_cols=opt.envCol, env_height=opt.envHeight,
-            env_width=opt.envWidth, generator=gen)
+            env_width=opt.envWidth, generator=gen,
+            compute_dtype=opt.computeDtype)
         for stage, nets, exp, ep, kw in (
                 ("brdf", brdf, getattr(opt, f"experimentBRDF{lvl}"),
                  opt.epochBRDF, {}),

@@ -6,7 +6,8 @@ encoder and the four decoders with the LR halved every 10 epochs; loss
 ``4*1.5*albedo + 1.0*normal + 0.5*rough + 0.5*depth``; a checkpoint per
 epoch under the reference's ``check_cascade{k}_w{W}_h{H}`` naming, and
 per-step checkpoints with ``--ckptEverySteps``.  At cascade 1 the loader
-reads the cascade-0 ``*_pre`` maps.
+reads the cascade-0 ``*_pre`` maps.  The conv stacks compute in
+``--computeDtype``, bfloat16 by default as in the JAX CLI.
 
 Usage: python -m inverserenderingofindoorscene_torch.cli.train_brdf \
     --dataRoot ... [--device cpu]
@@ -35,6 +36,7 @@ def parse_args(argv=None):
     p.add_argument("--resumeEpoch", type=int, default=None)
     p.add_argument("--previewEvery", type=int, default=2000,
                    help="dump GT/pred PNGs every N steps (trainBRDF.py:334)")
+    common.add_dtype_flag(p, "bfloat16")
     return p.parse_args(argv)
 
 
@@ -62,7 +64,8 @@ def main(argv=None):
     exp = common.experiment_dir(opt, "brdf")
     gen = common.pin_seeds(opt.seed)
 
-    nets = BRDFNets(cascade_level=opt.cascadeLevel, generator=gen)
+    nets = BRDFNets(cascade_level=opt.cascadeLevel, generator=gen,
+                    compute_dtype=opt.computeDtype)
     loader = common.make_loader(opt, "TRAIN", is_light=False)
     step = BRDFTrainStep(
         nets, opt.albedoWeight, opt.normalWeight, opt.roughWeight,

@@ -5,7 +5,9 @@ frozen cascade-k BRDF nets from the BRDF stage's checkpoint and trains the
 light encoder and its three SG decoders, loss ``10*reconst + 1*render``,
 through the hand-written CUDA kernels of the SG decode and the shading
 (trainLight.py:99-244).  ``--noKernels`` takes their plain PyTorch
-versions instead; a run with ``--device cpu`` needs it.
+versions instead; a run with ``--device cpu`` needs it.  The light nets
+compute in ``--computeDtype`` (bfloat16 by default, as in the JAX CLI);
+the frozen BRDF nets in float32, as there.
 
 Usage: python -m inverserenderingofindoorscene_torch.cli.train_light \
     --dataRoot ... --brdfExperiment check_cascade0_w320_h240 --brdfEpoch 13
@@ -31,6 +33,7 @@ def parse_args(argv=None):
     p.add_argument("--brdfExperiment", required=False, default=None)
     p.add_argument("--brdfEpoch", type=int, default=None)
     p.add_argument("--resumeEpoch", type=int, default=None)
+    common.add_dtype_flag(p, "bfloat16")
     common.add_kernel_flags(p)
     p.set_defaults(batchSize=5)
     return p.parse_args(argv)
@@ -74,6 +77,7 @@ def main(argv=None):
         env_height=opt.envHeight,
         env_width=opt.envWidth,
         generator=gen,
+        compute_dtype=opt.computeDtype,
     )
     loader = common.make_loader(opt, "TRAIN", is_light=True)
     step = LightTrainStep(

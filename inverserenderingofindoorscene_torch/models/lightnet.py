@@ -14,6 +14,10 @@ emit the SG parameters on the lighting grid:
 The final conv is applied once, as in the JAX package.  State-dict names
 are the reference's: ``preProcess.1/.2/.5/.6`` (an ``nn.Sequential``),
 ``conv{i}``/``gn{i}``, ``dconv{i}``/``dgn{i}``/``dconvFinal``.
+``compute_dtype`` is the convs' dtype, as in ``models/mgnet.py``: the
+input and ``env_pre`` are cast to it at entry, and a bf16 last conv's
+output goes to float32 before ``1.01 tanh``, so the SG outputs are
+float32.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ from inverserenderingofindoorscene_torch.models.mgnet import (
     GN_EPS,
     add_decoder_convs,
     add_encoder_convs,
+    at_least_f32,
+    conv_block,
     decoder_trunk,
     encoder_feats,
 )
@@ -49,6 +55,7 @@ class LightEncoder(nn.Module):
         super().__init__()
         self.sg_num = sg_num
         self.cascade_level = cascade_level
+        self.compute_dtype = None  # set by BRDFNets / LightNets
         # 11ch @ 4x grid -> 64ch @ grid: [edge pad, conv, gn, relu,
         # zero pad, conv, gn, relu] (indices 1/2/5/6 carry the params)
         self.preProcess = nn.Sequential(
@@ -67,7 +74,9 @@ class LightEncoder(nn.Module):
     def forward(self, x: torch.Tensor,
                 env_pre: Optional[torch.Tensor] = None):
         """x [B,11,4R,4C]; env_pre [B,sg*7,R,C] at cascade >= 1."""
-        h = self.preProcess(x)
+        pp, dtype = self.preProcess, self.compute_dtype
+        h = conv_block(pp[1], pp[2], x, True, dtype)
+        h = conv_block(pp[5], pp[6], pp[4](h), False, dtype)
         if self.cascade_level > 0:
             if env_pre is None:
                 raise ValueError("cascade > 0 needs the previous SG tensor")
@@ -85,12 +94,13 @@ class LightDecoder(nn.Module):
         super().__init__()
         self.sg_num = sg_num
         self.mode = mode
+        self.compute_dtype = None  # set by BRDFNets / LightNets
         add_decoder_convs(self, _DEC_SPEC, (512, 512, 256, 256, 128))
         out_ch = sg_num if mode == 1 else 3 * sg_num
         self.dconvFinal = nn.Conv2d(128, out_ch, 3, 1, padding=0)
 
     def forward(self, feats, env_hw=(120, 160)) -> torch.Tensor:
-        x = 1.01 * torch.tanh(decoder_trunk(self, env_hw, feats))
+        x = 1.01 * torch.tanh(at_least_f32(decoder_trunk(self, env_hw, feats)))
         if self.mode in (1, 2):
             return torch.clamp(0.5 * (x + 1.0), 0.0, 1.0)
         b, _, h, w = x.shape

@@ -14,6 +14,14 @@ bilinear x2 upsampling and skip concatenation, with per-task output heads:
 Submodules carry the reference's state-dict names (``conv{i}``/``gn{i}``,
 ``dconv{i}``/``dgn{i}``/``dconvFinal``), so a reference checkpoint loads
 with ``load_state_dict`` directly.
+
+``compute_dtype`` (a module attribute, not state) is the cast of the
+convs, as the JAX modules' ``dtype``: ``torch.bfloat16`` casts each
+conv's input, kernel and bias to bf16, GroupNorm takes its statistics
+and normalizes in float32 and hands back bf16 (flax promotes a
+half-precision input's statistics), and the heads run in float32;
+``None`` (float32) casts nothing.  The parameters stay float32 in
+either dtype.
 """
 
 from __future__ import annotations
@@ -31,6 +39,11 @@ from inverserenderingofindoorscene_torch.core.imageops import (
 )
 
 GN_EPS = 1e-5  # torch nn.GroupNorm default
+
+# the JAX package's ``compute_dtype`` names -> the dtype the convs cast
+# to; None: no cast, the params' own dtype (float32, or float64 where a
+# check moves a copy of the nets there)
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 # (out channels, groups, kernel, stride, edge pad) of the six encoder convs
 _ENC_SPEC = (
@@ -65,12 +78,64 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     return module
 
 
+def compute_dtype_of(name: str):
+    """The cast of a ``compute_dtype`` name (:data:`COMPUTE_DTYPES`)."""
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"compute dtype {name!r} is not one of "
+                         f"{sorted(COMPUTE_DTYPES)}")
+    return COMPUTE_DTYPES[name]
+
+
+class ComputeDtype:
+    """The ``compute_dtype`` of a bundle of nets (``BRDFNets``,
+    ``LightNets``): a name of :data:`COMPUTE_DTYPES`, set on every net
+    named in the class's ``dtype_nets`` as its cast."""
+
+    dtype_nets: tuple = ()
+
+    @property
+    def compute_dtype(self) -> str:
+        return self._compute_dtype
+
+    @compute_dtype.setter
+    def compute_dtype(self, name: str) -> None:
+        dtype = compute_dtype_of(name)
+        self._compute_dtype = name
+        for net in self.dtype_nets:
+            getattr(self, net).compute_dtype = dtype
+
+
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` promoted to at least float32 (a bf16 tensor to float32)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def conv_in(conv: nn.Conv2d, x: torch.Tensor, dtype) -> torch.Tensor:
+    """``conv`` computed in ``dtype``: its input, kernel and bias cast to
+    it (flax's ``nn.Conv(dtype=...)``); ``None`` is ``conv(x)``."""
+    if dtype is None:
+        return conv(x)
+    return F.conv2d(x.to(dtype), conv.weight.to(dtype), conv.bias.to(dtype),
+                    conv.stride, conv.padding)
+
+
+def group_norm_in(gn: nn.GroupNorm, x: torch.Tensor) -> torch.Tensor:
+    """``gn`` with its statistics and normalization in at least float32,
+    returned in ``x``'s dtype (flax's ``nn.GroupNorm(dtype=...)``
+    promotes a half-precision input so).  On float32 this is ``gn(x)``."""
+    return F.group_norm(at_least_f32(x), gn.num_groups, gn.weight, gn.bias,
+                        gn.eps).to(x.dtype)
+
+
 def conv_block(conv: nn.Conv2d, gn: nn.GroupNorm, x: torch.Tensor,
-               edge_pad: bool) -> torch.Tensor:
-    """pad -> conv -> GroupNorm -> ReLU; the conv carries the zero pad."""
+               edge_pad: bool, dtype=None) -> torch.Tensor:
+    """pad -> conv -> GroupNorm -> ReLU in ``dtype`` (``None``: the
+    params' own); the conv carries the zero pad."""
+    if dtype is not None:
+        x = x.to(dtype)
     if edge_pad:
         x = replication_pad(x, 1)
-    return F.relu(gn(conv(x)))
+    return F.relu(group_norm_in(gn, conv_in(conv, x, dtype)))
 
 
 def add_encoder_convs(enc: nn.Module, spec, cin: int) -> None:
@@ -83,11 +148,12 @@ def add_encoder_convs(enc: nn.Module, spec, cin: int) -> None:
 
 
 def encoder_feats(enc: nn.Module, spec, x: torch.Tensor):
-    """Run the convs of :func:`add_encoder_convs`; every block's output."""
+    """Run the convs of :func:`add_encoder_convs` in the encoder's
+    ``compute_dtype``; every block's output."""
     feats = []
     for i, block in enumerate(spec, start=1):
         x = conv_block(getattr(enc, f"conv{i}"), getattr(enc, f"gn{i}"), x,
-                       block[4])
+                       block[4], enc.compute_dtype)
         feats.append(x)
     return tuple(feats)
 
@@ -114,11 +180,14 @@ class Encoder(nn.Module):
 
     in_channels is 3 at cascade 0 and 17 at cascade >= 1
     (im3 + albedo3 + normal3 + rough1 + depth1 + diffuse3 + specular3).
+    The input is cast to ``compute_dtype`` at entry, and so are the
+    features.
     """
 
     def __init__(self, in_channels: int = 3):
         super().__init__()
         self.in_channels = in_channels
+        self.compute_dtype = None  # set by BRDFNets / LightNets
         add_encoder_convs(self, _ENC_SPEC, in_channels)
 
     def forward(self, x: torch.Tensor):
@@ -154,27 +223,34 @@ def decoder_trunk(dec: nn.Module, out_hw, feats):
     the six encoder maps.  Each block after the first upsamples the
     concatenation of the previous block and its skip 2x, convolves, and
     is resized to the next skip's size where the 2x does not hit it.
-    Returns the final conv output (no head)."""
+    Everything runs in ``dec.compute_dtype``.  Returns the final conv
+    output (no head), in that dtype."""
+    dtype = dec.compute_dtype
     skips = list(feats[:-1])
-    x = conv_block(dec.dconv1, dec.dgn1, feats[-1], False)
+    x = conv_block(dec.dconv1, dec.dgn1, feats[-1], False, dtype)
     for i in range(2, len(feats) + 1):
         skip = skips.pop()
         x = upsample2x(torch.cat([x, skip], dim=1))
         x = conv_block(getattr(dec, f"dconv{i}"), getattr(dec, f"dgn{i}"),
-                       x, False)
+                       x, False, dtype)
         x = _match_hw(x, skips[-1].shape[-2:] if skips else out_hw)
-    return dec.dconvFinal(replication_pad(x, 1))
+    return conv_in(dec.dconvFinal, replication_pad(x, 1), dtype)
 
 
 class Decoder(nn.Module):
-    """U-Net decoder over the 6 encoder features; output head by ``mode``."""
+    """U-Net decoder over the 6 encoder features; output head by ``mode``.
+
+    The trunk runs in ``compute_dtype``; the head math runs in at least
+    float32 whatever it is (the LSregress-coupled losses are sensitive to
+    the normalize/clamp chain), so a bf16 trunk's output is float32."""
 
     def __init__(self, mode: int = 0):
         super().__init__()
         self.mode = mode
+        self.compute_dtype = None  # set by BRDFNets / LightNets
         add_decoder_convs(self, _DEC_SPEC, (512, 256, 256, 128, 64))
         self.dconvFinal = nn.Conv2d(64, 3, 3, 1, padding=0)
 
     def forward(self, im: torch.Tensor, feats) -> torch.Tensor:
         x = decoder_trunk(self, im.shape[-2:], feats)
-        return apply_head(x, self.mode)
+        return apply_head(at_least_f32(x), self.mode)

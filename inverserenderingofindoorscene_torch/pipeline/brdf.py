@@ -28,6 +28,7 @@ from inverserenderingofindoorscene_torch.core.scale import (
 )
 from inverserenderingofindoorscene_torch.losses.masked import brdf_errors
 from inverserenderingofindoorscene_torch.models.mgnet import (
+    ComputeDtype,
     Decoder,
     Encoder,
     init_weights,
@@ -37,19 +38,26 @@ from inverserenderingofindoorscene_torch.models.mgnet import (
 HEADS = {"albedo": 0, "normal": 1, "rough": 2, "depth": 4}
 
 
-class BRDFNets(nn.Module):
+class BRDFNets(ComputeDtype, nn.Module):
     """Encoder + 4 decoders for one cascade level.
 
     Weights are drawn from ``generator`` (a seeded ``torch.Generator``;
-    ``None`` means seed 0) on the CPU; move the module with ``.to``."""
+    ``None`` means seed 0) on the CPU; move the module with ``.to``.
+    ``compute_dtype``: "float32" or "bfloat16", the dtype the conv stacks
+    run in (the parameters and the heads stay float32); it is not part of
+    the state dict, and may be set on built nets."""
+
+    dtype_nets = ("encoder",) + tuple(HEADS)
 
     def __init__(self, cascade_level: int = 0,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: str = "float32"):
         super().__init__()
         self.cascade_level = cascade_level
         self.encoder = Encoder(in_channels=3 if cascade_level == 0 else 17)
         for name, mode in HEADS.items():
             setattr(self, name, Decoder(mode=mode))
+        self.compute_dtype = compute_dtype
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_weights(self, generator)

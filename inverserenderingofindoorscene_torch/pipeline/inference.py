@@ -247,7 +247,10 @@ class InverseRenderer:
     bilateral solver (:func:`refine_bs`).  ``bs_nets``: the confidence
     nets, one ``BilateralNets`` per level (a list; an entry may be None
     for unit confidence) or one applied to every level, or None for unit
-    confidence everywhere.  ``fused`` is not ported and raises
+    confidence everywhere.  The stacks serve in their own
+    ``compute_dtype`` (``test_real --computeDtype bfloat16`` builds bf16
+    stacks); their heads, and so every kernel's inputs, are float32
+    either way.  ``fused`` is not ported and raises
     ``NotImplementedError``.
     """
 

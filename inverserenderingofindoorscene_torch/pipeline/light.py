@@ -33,7 +33,11 @@ from inverserenderingofindoorscene_torch.models.lightnet import (
     LightDecoder,
     LightEncoder,
 )
-from inverserenderingofindoorscene_torch.models.mgnet import init_weights
+from inverserenderingofindoorscene_torch.models.mgnet import (
+    ComputeDtype,
+    compute_dtype_of,
+    init_weights,
+)
 from inverserenderingofindoorscene_torch.ops.sg_render import (
     render_sg,
     sg_envmap,
@@ -44,15 +48,20 @@ from inverserenderingofindoorscene_torch.pipeline.brdf import brdf_step
 SG_HEADS = {"axis": 0, "lamb": 1, "weight": 2}
 
 
-class LightNets(nn.Module):
+class LightNets(ComputeDtype, nn.Module):
     """LightEncoder + axis/lamb/weight decoders for one cascade level.
 
-    Weights are drawn from ``generator`` (``None`` means seed 0)."""
+    Weights are drawn from ``generator`` (``None`` means seed 0).
+    ``compute_dtype`` as in ``BRDFNets``: the conv stacks' dtype, the
+    parameters and the SG outputs float32."""
+
+    dtype_nets = ("encoder",) + tuple(SG_HEADS)
 
     def __init__(self, *, sg_num: int = 12, cascade_level: int = 0,
                  env_rows: int = 120, env_cols: int = 160,
                  env_height: int = 8, env_width: int = 16,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 compute_dtype: str = "float32"):
         super().__init__()
         self.sg_num = sg_num
         self.cascade_level = cascade_level
@@ -61,6 +70,7 @@ class LightNets(nn.Module):
         self.encoder = LightEncoder(sg_num=sg_num, cascade_level=cascade_level)
         for name, mode in SG_HEADS.items():
             setattr(self, name, LightDecoder(sg_num=sg_num, mode=mode))
+        self.compute_dtype = compute_dtype
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         init_weights(self, generator)
@@ -79,13 +89,18 @@ class LightNets(nn.Module):
 
 
 def light_input_from_preds(im: torch.Tensor, preds: dict,
-                           light_hw=(480, 640)) -> torch.Tensor:
+                           light_hw=(480, 640),
+                           dtype: Optional[torch.dtype] = None
+                           ) -> torch.Tensor:
     """The 11-channel light-encoder input, NCHW in and out.
 
     preds' albedo/depth must already be mean-normalized; normal and rough
     are shifted to [0,1] and everything is bilinearly upsampled to
     light_hw in one 11-channel resize (bilinear interpolation is
-    channelwise, so this equals five separate resizes)."""
+    channelwise, so this equals five separate resizes).  ``dtype``: a
+    cast applied BEFORE the resize, as the JAX package does for a bf16
+    encoder (the input is detached; the float32 preds still feed the
+    losses)."""
     stacked = torch.cat(
         [
             im,
@@ -96,6 +111,8 @@ def light_input_from_preds(im: torch.Tensor, preds: dict,
         ],
         dim=1,
     )
+    if dtype is not None:
+        stacked = stacked.to(dtype)
     return resize_bilinear(stacked, light_hw)
 
 
@@ -110,6 +127,8 @@ def light_forward(nets: LightNets, im: torch.Tensor, brdf_preds: dict,
     inp = light_input_from_preds(
         to_nchw(im), {k: to_nchw(v) for k, v in brdf_preds.items()},
         nets.light_hw,
+        # bf16: assemble and resize in bf16, as the JAX light_forward does
+        dtype=compute_dtype_of(nets.compute_dtype),
     ).detach()
     if nets.cascade_level > 0:
         env_pre = to_nchw(env_pre.detach())

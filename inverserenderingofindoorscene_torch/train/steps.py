@@ -10,7 +10,10 @@ either cascade level (the modules carry their level), and the IIW and
 NYU fine-tunes.  The fine-tune CLIs alternate a synthetic BRDF step
 and a real-data step on ONE Adam and one schedule (the JAX CLIs' one
 ``TrainState``, whose count advances twice a cycle): hand the first
-step's ``optimizer`` and ``scheduler`` to the second.
+step's ``optimizer`` and ``scheduler`` to the second.  The nets carry
+their compute dtype (``BRDFNets`` / ``LightNets`` ``compute_dtype``):
+in bfloat16 the conv stacks run in bf16 while Adam and the LR schedule
+act on the float32 params, and the losses read the float32 heads.
 """
 
 from __future__ import annotations

@@ -9,7 +9,7 @@ just written; the kill-and-resume of the JAX package's
 and resumed with ``--resume auto`` ends bit-equal to an uninterrupted
 one, the epoch checkpoints compared tensor by tensor); a cascade-1 BRDF
 step on ``*_pre`` maps written by ``pipeline/export.write_products``; and
-the options that are refused.  The bitwise comparison runs on one thread
+a step of each CLI in either ``--computeDtype``.  The bitwise comparison runs on one thread
 (tests/test_torch_checkpoint.py says why), after a warm-up of every
 convolution shape (ROADMAP C12).
 """
@@ -126,17 +126,30 @@ def test_train_light_refuses_kernels_on_the_cpu(dataset, tmp_path):
                                          str(tmp_path / "e")]))
 
 
-@pytest.mark.parametrize("cli,extra,match", [
-    (train_brdf, ["--computeDtype", "bfloat16"], "A9"),
-    (train_light, ["--computeDtype", "bfloat16", "--noKernels"], "A9"),
-])
-def test_unported_options_raise(dataset, tmp_path, cli, extra, match):
-    """bf16 is refused (the item cache, refused until it was ported, is
-    tested in tests/test_torch_cache.py; the other CLIs' refusals in
-    tests/test_torch_cli_train.py)."""
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(_args(dataset, ["--experiment", str(tmp_path / "e")]
-                       + extra))
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_compute_dtype_trains_and_checkpoints(dataset, work, dtype):
+    """One ``train_brdf`` step and one ``train_light`` step (its light
+    nets in ``dtype``, the frozen BRDF nets in float32, as in the JAX
+    CLI) with ``--computeDtype``: finite losses, float32 checkpoints
+    whose keys do not depend on the dtype."""
+    exp_b, exp_l = str(work / "b"), str(work / "l")
+    dt = ["--computeDtype", dtype, "--maxSteps", "1", "--batchSize", "1"]
+    train_brdf.main(_args(dataset, ["--experiment", exp_b,
+                                    "--previewEvery", "0"] + dt))
+    train_light.main(_args(dataset, ["--experiment", exp_l,
+                                     "--brdfExperiment", exp_b,
+                                     "--noKernels"] + dt))
+    for exp, stage, nets in ((exp_b, "brdf", BRDFNets(0)),
+                             (exp_l, "light", LightNets(
+                                 env_rows=ENV_RC[0], env_cols=ENV_RC[1]))):
+        state = ckpt.restore_checkpoint(exp, stage, 0, 0)
+        assert list(state["nets"]) == list(nets.state_dict())
+        assert all(v.dtype == torch.float32
+                   for v in state["nets"].values())
+        lines = open(osp.join(exp, "trainingLog.txt")).read().splitlines()
+        values = [float(part.split()[1]) for part in lines[0].split("] ")[1]
+                  .split(" | ")]
+        assert len(lines) == 1 and np.isfinite(values).all()
 
 
 def test_preemption_resume_bitwise(dataset, work, monkeypatch,

@@ -208,9 +208,9 @@ def test_output_brdf_light_then_cascade1(tree, work):
 
 
 @pytest.mark.parametrize("cli,extra,match", [
-    (train_bilateral, ["--vMax", "4096"], "left out"),
-    (train_bilateral, ["--computeDtype", "bfloat16"], "A9"),
-    (test_real, ["--fused"], "A8"),
+    pytest.param(train_bilateral, ["--vMax", "4096"], "left out",
+                 id="cli0-extra0-left out"),
+    pytest.param(test_real, ["--fused"], "A8", id="cli2-extra2-A8"),
 ])
 def test_unported_options_raise(tree, work, cli, extra, match):
     if cli is test_real:

@@ -34,7 +34,7 @@ need = {"data.synthetic", "losses.masked", "train.steps", "pipeline.light",
         "data.cache", "cli.build_cache", "cli.train_bilateral",
         "cli.train_finetune_iiw", "cli.train_finetune_nyu",
         "cli.output_brdf_light", "cli.test_synthetic", "cli.test_real",
-        "cli.compare"}
+        "cli.compare", "cli.run_convergence"}
 assert {port.__name__ + "." + n for n in need} <= set(names)
 import chip_smoke
 bad = sorted(m for m in sys.modules
