@@ -18,9 +18,9 @@ Phases, each fatal on failure:
      D=200, K=64, B=8, a ragged K=5 and a ragged D=2048, and a K past the
      card's limit must raise; ``sg_envmap_bwd`` also at D=60, D=200, K=64
      and B=8; the ptxas registers and spills of the walk's entries and of
-     the envmap backward are logged), with bounds and with
-     times by device time (the profiler's kernel intervals) and by CUDA
-     events around a run of launches; the bilateral blur bit for bit on
+     the envmap backward are logged), with bounds and, at the main-path
+     shape, with times by device time (the profiler's kernel intervals)
+     and by CUDA events around a run of launches; the bilateral blur bit for bit on
      the grid of a noisy 240x320 guide at C=3 and C=1 and on a ragged
      10x13 one, with the time of torch.sparse.mm beside it;
   4. serving: the two-cascade ``InverseRenderer`` (level 2, lighting on,
@@ -30,11 +30,26 @@ Phases, each fatal on failure:
      launch counts show the requests went through ``render_sg_env`` and
      ``bilateral_blur``, each cascade's lighting and refinement agree with
      the plain route on the same inputs, and the plain route end to end
-     gives the same cascade-0 maps;
+     gives the same cascade-0 maps (on the first 10 requests);
+ 4b. fused serving, right after phase 4 (before phase 5 turns cuDNN's
+     autotuning on): ``InverseRenderer(fused=True)`` (the scale fit
+     traced per image) on phase 4's nets and operating point: 3 B=1
+     requests against the staged mode (predictions atol 2e-5, scales
+     rtol 1e-2, envmap and refinement at phase 4's tolerances), a B=4
+     batch against its images alone (c_light rtol 1e-4, the scales not
+     all equal, each refined map against the image's own refinement of
+     the batch's maps atol 1e-5), the counted launches (2
+     ``render_sg_env`` a call at B=1 and B=4, 2 * 68 blurs an image, and
+     the kernels by name in a profiled B=1 call), the chain on both
+     routes under ``torch.cuda.set_sync_debug_mode("error")``, fused and
+     staged ms a request in turns, ms a batch and an image at B=4 (also
+     with cuDNN's autotuning), the idle share, peak memory; and the chain
+     exported with ``InverseRenderer.serialize`` at B=1 and served by
+     ``deserialize_chain`` (c_light rtol 1e-5, albedo atol 1e-6);
   5. training: the cascade-0 lighting train step at full width (B=5, image
      240x320, grid 120x160, light input 480x640) from the same seeded
      weights on the kernel route and the plain route; step 1's losses
-     and light gradients agree, then 20 steps on each route are timed,
+     and light gradients agree, then 10 steps on each route are timed,
      descend, and launch each training kernel once a step on the kernel
      route;
   6. bilateral training: the bilateral train step at full width (B=2,
@@ -43,7 +58,7 @@ Phases, each fatal on failure:
      agree, then 10 steps on each route are timed, descend, and launch
      ``bilateral_blur`` 103 times an image a step on the kernel route;
   7. cascade recipe: the staged training recipe across the cascade
-     hand-off at full width, seeded weights: 20 cascade-0 BRDF steps
+     hand-off at full width, seeded weights: 10 cascade-0 BRDF steps
      (B=16, step 1's errors and per-net gradients against a float64 copy
      on a B=2 slice); the cascade-0 export of that batch on both routes
      (the BRDF products and the SG tensor bit-equal, diffuse and specular
@@ -51,7 +66,7 @@ Phases, each fatal on failure:
      ``sg_envmap_fwd`` launch on the kernel route); the hand-off of the
      kernel route's products in memory through ``normalize_cascade_pre``
      into the cascade-1 ``*_pre`` and ``env_pre`` maps; then, as phase 5,
-     the cascade-1 lighting step (B=5, 20 steps a route), as part 1 the
+     the cascade-1 lighting step (B=5, 10 steps a route), as part 1 the
      cascade-1 BRDF step (B=16, the 17-channel encoder), and as phase 6
      the cascade-1 bilateral step (B=2, 10 steps a route);
   8. fine-tunes: the IIW and NYU fine-tunes at full width (B=16, IIW
@@ -187,8 +202,10 @@ from inverserenderingofindoorscene_torch.pipeline.finetune import (
 )
 from inverserenderingofindoorscene_torch.pipeline.inference import (
     InverseRenderer,
+    deserialize_chain,
     predict_light,
     predict_light_core,
+    predict_light_traced,
     refine_bs,
 )
 from inverserenderingofindoorscene_torch.pipeline.light import (
@@ -213,12 +230,16 @@ IM_HW = (240, 320)
 ENV_RC = (120, 160)
 SG_NUM = 12
 # cut to fit the run: 100 before phase 10 was added, 50 before phases
-# 11-12
-N_REQUESTS = 30
+# 11-12, 30 before phase 4b
+N_REQUESTS = 20
+# phase 4's plain route end to end: the first 10 requests (all of them
+# before phase 4b was added, cut to fit the run)
+N_PLAIN_REQUESTS = 10
 N_DIRS = 128  # the 8x16 envmap
 TRAIN_B = 5  # the JAX light-training CLI's batch
 TRAIN_LR = 1e-4  # the reference's Adam rate
-N_TRAIN_STEPS = 20
+# phases 5 and 7 (20 before phase 4b was added, cut to fit the run)
+N_TRAIN_STEPS = 10
 BS_TRAIN_STEPS = 10  # phase 6; 20 before phase 10, cut to fit the run
 BS_TRAIN_B = 2  # the JAX bilateral-training CLI's batch
 BRDF_TRAIN_B = 16  # the JAX CLIs' default batch (cli/common.py:34)
@@ -880,13 +901,20 @@ def phase_kernels(seed, dev, ptxas):
         for label, shape, *extra in shapes:
             args = kernel_inputs(rng, *shape, dev)
             errs, fns, n_bytes, flops = check(args, shape, *extra)
+            if label != "main":
+                # checked at every shape, timed at the main path's only
+                # (every shape before phase 4b was added, cut to fit)
+                log(f"[kernels] {name} {label} B={shape[0]} {shape[1]}x"
+                    f"{shape[2]} K={shape[3]}: max abs err "
+                    + ", ".join(f"{nm} {e:.3e}" for nm, e in errs.items()))
+                del args, fns
+                continue
             dev_ms, ev_ms = timings(fns)
             bound_ms, bound_by = bound(n_bytes, flops, bw, f32_peak)
             log_kernel(name, label, shape, errs, dev_ms, ev_ms, bound_ms,
                        bound_by, n_bytes, flops)
-            if label == "main":
-                records[name] = record_of(name, errs, *dev_ms, bound_ms,
-                                          bound_by)
+            records[name] = record_of(name, errs, *dev_ms, bound_ms,
+                                      bound_by)
             del args, fns
         torch.cuda.empty_cache()
     records["bilateral_blur"] = phase_blur(seed, dev, bw, f32_peak)
@@ -996,7 +1024,8 @@ def read_launches():
 
 
 def phase_serving(seed):
-    """Returns {kernel: launches} of the serving path's run."""
+    """Returns {kernel: launches} of the serving path's run and the
+    (stacks, bs_nets) it served with."""
     gen = torch.Generator().manual_seed(seed)
     t0 = time.perf_counter()
     stacks = [(BRDFNets(lvl, generator=gen),
@@ -1044,7 +1073,7 @@ def phase_serving(seed):
                     f"{max(v)}" for (lvl, k), v in nverts.items()))
 
     plain_times = []
-    for (im, im_small), p0 in zip(requests, preds0):
+    for (im, im_small), p0 in list(zip(requests, preds0))[:N_PLAIN_REQUESTS]:
         ref, ms = timed_request(plain, im, im_small)
         plain_times.append(ms)
         check_shapes(ref)
@@ -1059,7 +1088,8 @@ def phase_serving(seed):
     log(f"[serving] {N_REQUESTS} requests, {launches['render_sg_env']} "
         f"render_sg_env and {launches['bilateral_blur']} bilateral_blur "
         f"launches; ms/request kernel route median {med:.3f} p90 {p90:.3f}, "
-        f"plain route median {pmed:.3f} p90 {pp90:.3f}; peak device memory "
+        f"plain route ({N_PLAIN_REQUESTS} requests) median {pmed:.3f} p90 "
+        f"{pp90:.3f}; peak device memory "
         f"{peak_mib:.0f} MiB")
 
     from torch.profiler import ProfilerActivity, profile
@@ -1072,7 +1102,8 @@ def phase_serving(seed):
         f"{ms:.3f} ms on the host clock, device busy {busy_ms:.3f} ms "
         f"(idle share {1.0 - busy_ms / ms:.3f}):")
     log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=20))
-    return {k: launches[k] for k in ("render_sg_env", "bilateral_blur")}
+    return ({k: launches[k] for k in ("render_sg_env", "bilateral_blur")},
+            (stacks, bs_nets))
 
 
 def device_busy_ms(prof):
@@ -1968,7 +1999,7 @@ def nets_rel_l2(a, b):
     return out
 
 
-def train_brdf_cli(root, tmp, dev):
+def train_brdf_cli(root, tmp):
     """``train_brdf`` at cascade 0: B=16 with process workers, 2 epochs of
     one step with a step checkpoint each; then the kill and resume at B=4.
     Returns the first run's experiment (its checkpoint is the frozen nets
@@ -2002,11 +2033,12 @@ def train_brdf_cli(root, tmp, dev):
                                                 else "killed"))
         with CLITimer(kill_at=kill) as timer:
             try:
+                # thread workers: a spawned pool costs 9-15 s a run to
+                # start (process workers before phase 4b, cut to fit)
                 cli_train_brdf.main(cli_args(
-                    root, run_exp, "--batchSize", CLI_RESUME_B,
-                    "--numWorkers", CLI_WORKERS, "--nepoch", 1,
-                    "--ckptEverySteps", 1, "--resume", "auto",
-                    "--previewEvery", 0, *F32))
+                    root, run_exp, "--batchSize", CLI_RESUME_B, *THREADS,
+                    "--nepoch", 1, "--ckptEverySteps", 1, "--resume",
+                    "auto", "--previewEvery", 0, *F32))
             except KeyboardInterrupt:
                 if kill is None:
                     raise
@@ -2043,42 +2075,7 @@ def train_brdf_cli(root, tmp, dev):
         f"{same_loss}; ms " + runs["whole"][1].summary())
     if not max(dist.values()) < RESUME_REL_L2:
         raise AssertionError(f"resumed run vs uninterrupted: {dist}")
-    repeat_determinism(root, a, dev)
     return exp
-
-
-def repeat_determinism(root, state, dev):
-    """Which nets' gradients a BRDF step repeats bit for bit: the same
-    state and the same B=4 loader batch twice, with cuDNN's autotuned
-    algorithms and with ``cudnn.deterministic`` (deterministic algorithms
-    only)."""
-    batch = next(iter(BatchIterator(OpenRoomsDataset(
-        root, im_hw=IM_HW, env_rc=ENV_RC), CLI_RESUME_B, num_workers=0,
-        shuffle=False)))
-    batch = cli_common.stage_batch(batch, dev)
-    nets = BRDFNets(0)
-    nets.load_state_dict(state["nets"])
-
-    def grads():
-        step = make_brdf_train_step(copy.deepcopy(nets), device=dev)
-        step.loss(batch)[0].backward()
-        return dict(step.brdf_nets.named_parameters())
-
-    out = {}
-    for label, det in (("autotuned", False), ("cudnn.deterministic", True)):
-        torch.backends.cudnn.deterministic = det
-        try:
-            runs = [grads(), grads()]
-        finally:
-            torch.backends.cudnn.deterministic = False
-        out[label] = {net: all(torch.equal(p.grad, runs[1][n].grad)
-                               for n, p in runs[0].items()
-                               if n.startswith(net + "."))
-                      for net in BRDF_NETS}
-    log("[from disk] one B=4 BRDF step's gradients twice from the same "
-        "state and batch, bit-equal by net: "
-        + "; ".join(f"{label} " + ", ".join(f"{n} {v}" for n, v in r.items())
-                    for label, r in out.items()))
 
 
 def train_light_cli(root, tmp, brdf_exp):
@@ -2187,14 +2184,21 @@ def phase_from_disk(seed, dev, nets, tmp):
                              "decoder")
 
     cv2_route = OpenRoomsDataset._load_envmap_cv2
+    def cell(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        log(f"[time] cell {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
     try:
-        roots = write_fixtures(tmp, seed)
-        rates = check_loaders(roots["openrooms"])
+        roots = cell("fixtures", write_fixtures, tmp, seed)
+        rates = cell("loaders", check_loaders, roots["openrooms"])
         OpenRoomsDataset._load_envmap_cv2 = no_cv2
-        brdf_exp = train_brdf_cli(roots["openrooms"], tmp, dev)
-        launches, light_timer = train_light_cli(roots["openrooms"], tmp,
-                                                brdf_exp)
-        real_data_steps(roots, nets, dev)
+        brdf_exp = cell("cli-c0-brdf", train_brdf_cli, roots["openrooms"],
+                        tmp)
+        launches, light_timer = cell("cli-c0-light", train_light_cli,
+                                     roots["openrooms"], tmp, brdf_exp)
+        cell("real-data steps", real_data_steps, roots, nets, dev)
     finally:
         OpenRoomsDataset._load_envmap_cv2 = cv2_route
     log(f"[from disk] phase 9: {time.perf_counter() - t_phase:.1f} s")
@@ -2918,6 +2922,304 @@ def phase_learning(smi):
     return launches
 
 
+# -------------------------------------------------------------- phase 4b
+
+
+FUSED_CHECKED = 3  # B=1 requests held fused against staged
+FUSED_B = 4  # the batch held against its images one by one
+N_FUSED_TIMED = 10  # B=1 requests a mode, fused and staged in turns
+N_FUSED_BATCHES = 2  # timed B=4 batches
+# a batch's c_light against each image's B=1 call: the JAX test's rtol
+# (tests/test_pipeline.py:283-296); the same float32 chain, its
+# convolutions summed in another order at another batch size
+BATCH_RTOL = 1e-4
+# fused against staged predictions (tests/test_pipeline.py:256-263); a
+# batch's refinement against each image's refinement of its own maps
+FUSED_PRED_ATOL = 2e-5
+BATCH_REFINE_ATOL = 1e-5
+# the exported chain against the fused call (tests/test_pipeline.py:
+# 328-341)
+EXPORT_TOL = {"c_light": 1e-5, "albedo": 1e-6}
+
+
+def to_device(dev, *arrays):
+    return [torch.as_tensor(a, device=dev) for a in arrays]
+
+
+def max_err(a, b):
+    return float((a.double() - b.double()).abs().max())
+
+
+def check_fused_vs_staged(fused, staged, worst):
+    """One B=1 request in both modes: each cascade's predictions and
+    envmap, the scale fit (host float64 against traced float32, the
+    card's scale tolerance C3), each level's refinement."""
+    for lvl in range(2):
+        for k, v in fused["preds"][lvl].items():
+            err = max_err(v, staged["preds"][lvl][k])
+            if not err <= FUSED_PRED_ATOL:
+                raise AssertionError(f"[fused] level {lvl} {k}: fused vs "
+                                     f"staged {err:.3e}")
+            worst[f"preds{lvl}"] = max(worst.get(f"preds{lvl}", 0.0), err)
+        fl, sl = fused["lights"][lvl], staged["lights"][lvl]
+        key = f"light{lvl}.env_img"
+        worst[key] = max(worst.get(key, 0.0), check_close(
+            f"[fused] {key}", fl["env_img"], sl["env_img"],
+            *CHAIN_TOL["env_img"]))
+        for k in ("c_albedo", "c_light"):
+            got = float(fl[k][0])
+            rel = abs(got - sl[k]) / abs(sl[k])
+            if not rel <= SCALE_RTOL:
+                raise AssertionError(f"[fused] {k} level {lvl}: {got} vs "
+                                     f"staged {sl[k]}")
+            key = f"light{lvl}.{k} (relative)"
+            worst[key] = max(worst.get(key, 0.0), rel)
+        for k, v in fused["refined"][lvl].items():
+            key = f"refined{lvl}.{k}"
+            worst[key] = max(worst.get(key, 0.0), check_close(
+                f"[fused] {key}", v, staged["refined"][lvl][k],
+                *REFINE_TOL))
+
+
+def check_batch(im4, out4, singles, worst):
+    """The B=4 call against its images' B=1 calls: each c_light (rtol
+    1e-4), the four scales not all equal; each refined map (unit
+    confidence) against the image's refinement of the batch's own maps.
+    The predictions and refined maps of the B=1 calls are logged beside:
+    the convolutions of a batch sum in another order, cascade 1 takes
+    cascade 0's fitted maps, and the solver's grid puts each guide pixel
+    in a cell, so last-bit differences can move a pixel across a cell.  (With confidence nets a batch's refinement is not its images'
+    own: the confidence is divided by its maximum over the whole batch
+    tensor, BilateralLayer.py:269, in the JAX package too.)"""
+    c4 = [float(x) for x in out4["light"]["c_light"]]
+    for i, one in enumerate(singles):
+        c1 = float(one["light"]["c_light"][0])
+        rel = abs(c4[i] - c1) / abs(c1)
+        if not rel <= BATCH_RTOL:
+            raise AssertionError(f"[fused] image {i} of the batch: c_light "
+                                 f"{c4[i]} vs {c1} alone")
+        worst["batch c_light (relative)"] = max(
+            worst.get("batch c_light (relative)", 0.0), rel)
+        for lvl in range(2):
+            for k, v in out4["preds"][lvl].items():
+                key = f"batch preds{lvl} vs alone (logged)"
+                worst[key] = max(worst.get(key, 0.0), max_err(
+                    v[i], one["preds"][lvl][k][0]))
+            for k, v in out4["refined"][lvl].items():
+                key = f"batch refined{lvl} vs alone (logged)"
+                worst[key] = max(worst.get(key, 0.0), max_err(
+                    v[i], one["refined"][lvl][k][0]))
+    if len(set(c4)) == 1:
+        raise AssertionError(f"[fused] four images, one scale {c4}")
+    with torch.inference_mode():
+        for lvl, preds in enumerate(out4["preds"]):
+            for i in range(len(singles)):
+                own = refine_bs(im4[i:i + 1],
+                                {k: v[i:i + 1] for k, v in preds.items()})
+                for k, v in own.items():
+                    err = max_err(out4["refined"][lvl][k][i], v[0])
+                    if not err <= BATCH_REFINE_ATOL:
+                        raise AssertionError(
+                            f"[fused] image {i} level {lvl} refined {k}: "
+                            f"batch vs its own {err:.3e}")
+                    key = f"batch refined{lvl}"
+                    worst[key] = max(worst.get(key, 0.0), err)
+
+
+def check_no_sync(tag, renderer, im, im_small):
+    """The chain with the traced fit under ``set_sync_debug_mode("error")``:
+    any host sync inside it raises."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            out = renderer._run_chain(im, im_small, 57.0,
+                                      predict_light_traced)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log(f"[fused] {tag}: the chain ran under set_sync_debug_mode('error') "
+        "without a host sync")
+    return out
+
+
+def kernel_events(prof, needle):
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and needle in e.name)
+
+
+def profiled_request(renderer, im, im_small, tries=3):
+    """One fused B=1 request in torch.profiler: the serving walk's and the
+    blur's kernels by name (2 and 2 * BLURS_FWD; a trace that dropped
+    events is taken again).  Returns the host ms, the device's busy ms
+    and the trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    want = {"sg_render_walk_kernel": 2, "bilateral_blur_kernel":
+            2 * BLURS_FWD}
+    for i in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, ms = timed_request(renderer, im, im_small)
+        got = {k: kernel_events(prof, k) for k in want}
+        if got == want:
+            return ms, device_busy_ms(prof), prof
+        log(f"[fused] profiled request {i + 1}: kernels by name {got}, "
+            f"expected {want}; tracing again")
+    raise AssertionError(f"[fused] kernels by name {got}, expected {want}")
+
+
+def check_served_export(fused, requests, outs, dev, smi):
+    """The fused chain exported at B=1 on the card (kernel route), served
+    from the bytes and the weights in this process, against the fused
+    calls.  Returns {kernel: launches} of the served calls."""
+    t0 = time.perf_counter()
+    blob, params = fused.serialize(IM_HW, ENV_RC, fov=57.0, batch=1)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    served = deserialize_chain(blob)
+    load_s = time.perf_counter() - t0
+    errs = {}
+    reset_launches()
+    for (im, im_small), want in zip(requests, outs):
+        got = served(params, *to_device(dev, im, im_small))
+        c_got, c_want = got["light"]["c_light"], want["light"]["c_light"]
+        rel = float(((c_got - c_want).abs() / c_want.abs()).max())
+        err = max_err(got["preds"][-1]["albedo"], want["preds"][-1]["albedo"])
+        if not (rel <= EXPORT_TOL["c_light"] and err <= EXPORT_TOL["albedo"]):
+            raise AssertionError(f"[export] served vs fused: c_light {rel:.3e}"
+                                 f", albedo {err:.3e}")
+        errs["c_light"] = max(errs.get("c_light", 0.0), rel)
+        errs["albedo"] = max(errs.get("albedo", 0.0), err)
+    launches = read_launches()
+    expect_launches("[export] served chain", launches,
+                    render_sg_env=2 * len(requests))
+    log(f"[export] serialize (torch.export, B=1, kernel route): "
+        f"{export_s:.1f} s, {len(blob)} bytes beside "
+        f"{sum(p.numel() for p in params.values())} weights; "
+        f"deserialize_chain {load_s:.2f} s; {len(requests)} served requests "
+        f"against the fused calls: c_light relative {errs['c_light']:.3e}, "
+        f"final albedo {errs['albedo']:.3e}; launches {launches}; {smi}")
+    return launches
+
+
+def phase_fused(seed, dev, stacks, bs_nets, smi):
+    """Phase 4b: the fused serving mode (``InverseRenderer(fused=True)``)
+    on phase 4's nets, right after phase 4 and before phase 5 turns
+    cuDNN's autotuning on: the algorithms it picks for a batch and for
+    its images alone differ, and after phases 5-12 the scale fit put a
+    B=4 batch's c_light 1.7e-4 from its image's alone.  Returns {kernel:
+    launches} of its runs."""
+    t_phase = time.perf_counter()
+    kw = dict(is_light=True, is_bs=True, bs_nets=bs_nets)
+    fused = InverseRenderer(stacks, fused=True, **kw)
+    staged = InverseRenderer(stacks, **kw)
+    # the batch held against its images: unit confidence (check_batch)
+    unit = InverseRenderer(stacks, fused=True, is_light=True, is_bs=True)
+    plain = InverseRenderer(stacks, fused=True, use_kernels=False)
+    rng = np.random.RandomState(seed + 13)
+
+    def photos(b):
+        return (rng.rand(b, *IM_HW, 3).astype(np.float32) ** 2.2,
+                rng.rand(b, *ENV_RC, 3).astype(np.float32) ** 2.2)
+
+    requests = [photos(1) for _ in range(FUSED_CHECKED)]
+    batch = photos(FUSED_B)
+    singles = [(batch[0][i:i + 1], batch[1][i:i + 1])
+               for i in range(FUSED_B)]
+    for r in (fused, staged, unit, plain):  # warm-up: cuDNN, the allocator
+        timed_request(r, *requests[0])
+
+    # the main path: fused B=1 and B=4 requests, counted; staged beside
+    worst = {}
+    reset_launches()
+    outs = []
+    for im, im_small in requests:
+        out, _ = timed_request(fused, im, im_small)
+        ref, _ = timed_request(staged, im, im_small)
+        check_fused_vs_staged(out, ref, worst)
+        outs.append(out)
+    out4, _ = timed_request(unit, *batch)
+    ones = [timed_request(unit, *s)[0] for s in singles]
+    launches = read_launches()
+    n_im = 2 * FUSED_CHECKED + 2 * FUSED_B
+    expect_launches("[fused] main path", launches,
+                    render_sg_env=2 * (2 * FUSED_CHECKED + 1 + FUSED_B),
+                    bilateral_blur=2 * BLURS_FWD * n_im)
+    check_batch(torch.as_tensor(batch[0], device=dev), out4, ones, worst)
+    log(f"[fused] {FUSED_CHECKED} B=1 requests fused against staged, a B="
+        f"{FUSED_B} batch against its images alone; launches {launches}; "
+        "max err: " + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+
+    log(f"[time] phase 4b checks: {time.perf_counter() - t_phase:.1f} s")
+    # no host sync inside the chain, on both routes
+    im_t, small_t = to_device(dev, *requests[0])
+    check_no_sync("kernel route", fused, im_t, small_t)
+    check_no_sync("plain route", plain, im_t, small_t)
+
+    # one B=1 request (a B=4 trace holds cuDNN's ~200k FFT launches,
+    # below, and takes a minute to read)
+    ms, busy, prof = profiled_request(fused, *requests[0])
+    log(f"[fused] torch.profiler, one B=1 request: {ms:.3f} ms on the host "
+        f"clock, device busy {busy:.3f} ms (idle share "
+        f"{1.0 - busy / ms:.3f}); the serving walk 2 launches and the blur "
+        f"{2 * BLURS_FWD} by kernel name:")
+    log(prof.key_averages().table(sort_by="cuda_time_total", row_limit=12))
+
+    log(f"[time] phase 4b to the timings: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    # times, in turns; written down, not claimed
+    times = {"fused": [], "staged": []}
+    chain_ms = {"fused": [], "staged": []}
+    for i in range(N_FUSED_TIMED):
+        im, im_small = requests[i % FUSED_CHECKED]
+        for mode, r in (("fused", fused), ("staged", staged)):
+            times[mode].append(timed_request(r, im, im_small)[1])
+            im_t, small_t = to_device(dev, im, im_small)
+            post = predict_light_traced if mode == "fused" else predict_light
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.inference_mode():
+                r._run_chain(im_t, small_t, 57.0, post)
+            torch.cuda.synchronize()
+            chain_ms[mode].append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.reset_peak_memory_stats()
+    batch_ms = [timed_request(fused, *batch)[1]
+                for _ in range(N_FUSED_BATCHES)]
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    for mode in times:
+        med, p90 = percentiles(times[mode])
+        cmed, cp90 = percentiles(chain_ms[mode])
+        log(f"[fused] {mode} B=1, {N_FUSED_TIMED} requests in turns with "
+            f"the other mode: ms/request median {med:.3f} p90 {p90:.3f}; "
+            f"the chain alone (no refinement, device tensors) median "
+            f"{cmed:.3f} p90 {cp90:.3f}; {smi}")
+    med = statistics.median(batch_ms)
+    log(f"[fused] B={FUSED_B}, {N_FUSED_BATCHES} batches: ms/batch median "
+        f"{med:.3f} (min {min(batch_ms):.3f}, max {max(batch_ms):.3f}), "
+        f"ms/image {med / FUSED_B:.3f}; peak device memory "
+        f"{peak_mib:.0f} MiB; {smi}")
+    # cuDNN's default algorithm choice takes an FFT path at B=4 that
+    # launches ~200k small kernels (a profiled batch, PR 14); the same
+    # batch with autotuning on, as the CLIs serve, its first call tuning
+    torch.backends.cudnn.benchmark = True
+    try:
+        tuned_ms = [timed_request(fused, *batch)[1] for _ in range(2)]
+    finally:
+        torch.backends.cudnn.benchmark = False
+    log(f"[fused] B={FUSED_B} with cudnn.benchmark on: the tuning call "
+        f"{tuned_ms[0]:.3f} ms, then ms/batch {tuned_ms[1]:.3f}, ms/image "
+        f"{tuned_ms[1] / FUSED_B:.3f}; {smi}")
+
+    log(f"[time] phase 4b to the export: "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    served = check_served_export(fused, requests, outs, dev, smi)
+    for k in launches:
+        launches[k] += served[k]
+    log(f"[time] phase 4b cells: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2941,8 +3243,11 @@ def main(argv=None):
     mark("1-2 device and build")
     records = phase_kernels(args.seed, dev, ptxas)
     mark("3 kernels")
-    launches = phase_serving(args.seed)
+    launches, serving_nets = phase_serving(args.seed)
     mark("4 serving")
+    fused = phase_fused(args.seed, dev, *serving_nets, smi)
+    del serving_nets
+    mark("4b fused serving")
     launches.update(phase_training(args.seed, dev))
     mark("5 training")
     # bilateral_blur's count: the serving run's and the bilateral training
@@ -2975,7 +3280,7 @@ def main(argv=None):
         "removed")
     learning = phase_learning(smi)
     mark("12 learning")
-    for run in (finetune, disk, clis, bf16, learning):
+    for run in (fused, finetune, disk, clis, bf16, learning):
         for name, n in run.items():
             launches[name] += n
     for name, record in records.items():

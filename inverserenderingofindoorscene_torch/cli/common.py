@@ -100,10 +100,6 @@ def add_kernel_flags(p: argparse.ArgumentParser) -> None:
 def check_ported(opt) -> None:
     """Refuse the options whose code is not ported yet, never replacing
     them with something else."""
-    if getattr(opt, "fused", False):
-        raise NotImplementedError(
-            "--fused: the single-program chain is not ported until ROADMAP "
-            "A8 (batched serving and the fused mode); run the staged chain")
     v_max = getattr(opt, "vMax", "full")
     if v_max not in ("full", "auto"):
         raise NotImplementedError(

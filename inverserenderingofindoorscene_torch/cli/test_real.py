@@ -12,6 +12,8 @@ kernel, twice a photo at level 2, and the refinement's blur on
 ``bilateral_blur`` (``--noKernels``: their plain versions;
 ``--device cpu`` needs it).  ``--computeDtype bfloat16`` runs both
 stacks' convolutions in bf16 (float32 by default, as in the JAX CLI).
+``--fused`` serves with ``InverseRenderer(fused=True)``: the scale fit
+traced per image, no host sync inside the chain.
 
 Usage: python -m inverserenderingofindoorscene_torch.cli.test_real \
     --imList images.txt --output out/ [--level 2] [--isLight] [--isBS]
@@ -82,8 +84,9 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=0)
     common.add_dtype_flag(p, "float32")
     p.add_argument("--fused", action="store_true",
-                   help="the single-program chain; not ported (an error "
-                        "here)")
+                   help="the fused chain: the cLight/cAlbedo fit traced "
+                        "per image (torch.where), no host sync between "
+                        "the cascades; the staged chain fits on the host")
     common.add_kernel_flags(p)
     return p.parse_args(argv)
 
@@ -261,7 +264,7 @@ def main(argv=None):
     renderer = InverseRenderer(
         load_stack(opt, device), is_light=opt.isLight, is_bs=opt.isBS,
         bs_nets=load_bs_nets(opt, device) if opt.isBS else None,
-        use_kernels=opt.useKernels, device=device)
+        use_kernels=opt.useKernels, fused=opt.fused, device=device)
 
     def load(p):
         return load_real_image(p, (opt.imHeight, opt.imWidth),

@@ -27,11 +27,7 @@ import math
 
 import torch
 
-from inverserenderingofindoorscene_torch.core.camera import view_dirs
-from inverserenderingofindoorscene_torch.core.sphere import (
-    hemisphere_dirs,
-    hemisphere_weights,
-)
+from inverserenderingofindoorscene_torch.core import tables
 
 
 def tangent_frame(normal: torch.Tensor):
@@ -39,7 +35,7 @@ def tangent_frame(normal: torch.Tensor):
 
     normal: [..., 3] unit normals. Returns (camx, camy) each [..., 3].
     """
-    up = torch.tensor([0.0, 1.0, 0.0], dtype=normal.dtype, device=normal.device)
+    up = tables.up(normal.dtype, normal.device)
     proj = torch.sum(up * normal, dim=-1, keepdim=True) * normal
     camy = up - proj
     norm = torch.linalg.vector_norm
@@ -67,12 +63,9 @@ def render_envmap(
     """
     h_img, w_img = albedo.shape[-3], albedo.shape[-2]
     dtype, dev = albedo.dtype, albedo.device
-    ls = torch.as_tensor(hemisphere_dirs(env_height, env_width), dtype=dtype,
-                         device=dev)  # [D,3]
-    wgt = torch.as_tensor(hemisphere_weights(env_height, env_width),
-                          dtype=dtype, device=dev)  # [D]
-    v = torch.as_tensor(view_dirs(h_img, w_img, fov_deg), dtype=dtype,
-                        device=dev)  # [H,W,3]
+    ls = tables.hemisphere(env_height, env_width, dtype, dev)  # [D,3]
+    wgt = tables.hemisphere_weight(env_height, env_width, dtype, dev)  # [D]
+    v = tables.view(h_img, w_img, fov_deg, dtype, dev)  # [H,W,3]
 
     normal = normal / torch.sqrt(
         torch.clamp(torch.sum(normal * normal, dim=-1, keepdim=True), 1e-6, 1.0)

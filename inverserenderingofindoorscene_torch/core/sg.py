@@ -18,7 +18,7 @@ import math
 
 import torch
 
-from inverserenderingofindoorscene_torch.core.sphere import hemisphere_dirs
+from inverserenderingofindoorscene_torch.core import tables
 
 TAN_SQUASH_EPS = 0.999
 
@@ -41,6 +41,12 @@ def sg_params_from_flat(flat: torch.Tensor, sg_num: int = 12):
     return ax, lamb, w
 
 
+def dot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum_c a[..., c] b[..., c] over the last axis of 3, broadcast, as
+    multiplies and adds: no BLAS or oneDNN path decides its rounding."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+
 def sg_to_envmap(
     axis: torch.Tensor,
     lamb: torch.Tensor,
@@ -53,14 +59,16 @@ def sg_to_envmap(
     axis [..., sg, 3] unit lobe axes (local frame); lamb [..., sg]
     sharpness (un-squashed); weight [..., sg, 3] RGB amplitudes
     (un-squashed).  Returns envmap [..., env_height*env_width, 3].
+
+    Both contractions are broadcast products and sums, never a matmul:
+    the CPU's matmul paths round by the matmul precision and by the path
+    a process is on, and ``lamb`` up to ~60 in the exponential amplifies
+    that (ROADMAP C18).
     """
-    ls = torch.as_tensor(
-        hemisphere_dirs(env_height, env_width), dtype=axis.dtype,
-        device=axis.device,
-    )
-    cos = torch.einsum("...kc,dc->...kd", axis, ls)  # [..., sg, dirs]
+    ls = tables.hemisphere(env_height, env_width, axis.dtype, axis.device)
+    cos = dot3(axis[..., :, None, :], ls)  # [..., sg, dirs]
     e = torch.exp(lamb[..., :, None] * (cos - 1.0))
-    return torch.einsum("...kd,...kc->...dc", e, weight)
+    return torch.sum(e[..., None] * weight[..., :, None, :], dim=-3)
 
 
 def squashed_sg_to_envmap(

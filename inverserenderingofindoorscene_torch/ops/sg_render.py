@@ -34,11 +34,12 @@ import torch
 
 from inverserenderingofindoorscene_torch.core.brdf import render_envmap
 from inverserenderingofindoorscene_torch.core.camera import view_dirs
-from inverserenderingofindoorscene_torch.core.sg import sg_to_envmap
+from inverserenderingofindoorscene_torch.core.sg import dot3, sg_to_envmap
 from inverserenderingofindoorscene_torch.core.sphere import (
     hemisphere_dirs,
     hemisphere_weights,
 )
+from inverserenderingofindoorscene_torch.core.tables import hemisphere
 from inverserenderingofindoorscene_torch.ops import build
 
 # dynamic shared memory a block may take on Hopper with the opt-in
@@ -184,10 +185,37 @@ def render_sg_env(albedo, normal, rough, axis, lamb, weight, fov_deg=57.0,
     be contiguous float32 on one device; D <= 1024 and K <= 312 (the
     block's shared memory), else ValueError.
     ``render_sg_env.launches`` counts kernel launches.
+
+    The call goes through the custom op ``irois_torch::render_sg_env``:
+    its CUDA implementation launches the kernel, its CPU one runs
+    :func:`render_sg_env_plain`, and its fake one gives the output shapes,
+    so ``torch.export`` holds the kernel as one node of a program.
     """
-    if not build.on_card("render_sg_env", albedo):
-        return render_sg_env_plain(albedo, normal, rough, axis, lamb, weight,
-                                   fov_deg, f0, env_height, env_width)
+    if build.on_card("render_sg_env", albedo):
+        # checked before the dispatch, so a bad input raises the same
+        # ValueError wherever the call comes from
+        _shading_inputs("render_sg_env", albedo, normal, rough, axis, lamb,
+                        weight)
+    return _render_sg_env_op(albedo, normal, rough, axis, lamb, weight,
+                             float(fov_deg), float(f0), int(env_height),
+                             int(env_width))
+
+
+@torch.library.custom_op("irois_torch::render_sg_env", mutates_args=(),
+                         device_types="cpu")
+def _render_sg_env_op(albedo: torch.Tensor, normal: torch.Tensor,
+                      rough: torch.Tensor, axis: torch.Tensor,
+                      lamb: torch.Tensor, weight: torch.Tensor,
+                      fov_deg: float, f0: float, env_height: int,
+                      env_width: int
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return render_sg_env_plain(albedo, normal, rough, axis, lamb, weight,
+                               fov_deg, f0, env_height, env_width)
+
+
+@_render_sg_env_op.register_kernel("cuda")
+def _render_sg_env_launch(albedo, normal, rough, axis, lamb, weight,
+                          fov_deg, f0, env_height, env_width):
     lib, (b, h, w, k, d), tables = _walk_inputs(
         "render_sg_env", albedo, normal, rough, axis, lamb, weight, fov_deg,
         env_height, env_width)
@@ -205,6 +233,15 @@ def render_sg_env(albedo, normal, rough, axis, lamb, weight, fov_deg=57.0,
         env.data_ptr(), n, h * w, k, d, float(f0), build.stream(dev)))
     render_sg_env.launches += 1
     return diffuse, specular, env
+
+
+@_render_sg_env_op.register_fake
+def _render_sg_env_shapes(albedo, normal, rough, axis, lamb, weight,
+                          fov_deg, f0, env_height, env_width):
+    lead = tuple(albedo.shape[:3])
+    d = env_height * env_width
+    return (albedo.new_empty(lead + (3,)), albedo.new_empty(lead + (3,)),
+            albedo.new_empty(lead + (d, 3)))
 
 
 render_sg_env.launches = 0
@@ -226,15 +263,15 @@ def sg_envmap_bwd_plain(axis, lamb, weight, g_env, env_height=8,
     adjoint of ``csrc/sg_common.cuh`` (``lobe``, ``lobe_adjoint``,
     ``write_lobe_grads``).  g_env [...,D,3] is the envmap's adjoint;
     returns (d_axis, d_lamb, d_weight) shaped like axis, lamb, weight."""
-    ls = torch.as_tensor(hemisphere_dirs(env_height, env_width),
-                         dtype=axis.dtype, device=axis.device)  # [D,3]
-    cosm1 = torch.einsum("...kc,dc->...kd", axis, ls) - 1.0
+    ls = hemisphere(env_height, env_width, axis.dtype, axis.device)  # [D,3]
+    # the contractions as broadcast products and sums, as in sg_to_envmap
+    cosm1 = dot3(axis[..., :, None, :], ls) - 1.0
     e = torch.exp(lamb[..., None] * cosm1)  # [...,K,D]
-    ge = torch.einsum("...dc,...kc->...kd", g_env, weight)
-    d_weight = torch.einsum("...dc,...kd->...kc", g_env, e)
+    ge = dot3(g_env[..., None, :, :], weight[..., :, None, :])  # [...,K,D]
+    d_weight = torch.sum(g_env[..., None, :, :] * e[..., None], dim=-2)
     gee = ge * e
     d_lamb = torch.sum(gee * cosm1, dim=-1)
-    d_axis = lamb[..., None] * torch.einsum("...kd,dc->...kc", gee, ls)
+    d_axis = lamb[..., None] * torch.sum(gee[..., None] * ls, dim=-2)
     return d_axis, d_lamb, d_weight
 
 
@@ -557,10 +594,10 @@ def render_sg_bwd_plain(albedo, normal, rough, axis, lamb, weight,
     d_axis, d_lamb, d_weight = sg_envmap_bwd_plain(ax, lm, wt, genv,
                                                    env_height, env_width)
     # (C) shading adjoint against the mixture, then the per-pixel chain
-    e_d = torch.einsum("nc,ndc->nd", gda, env)
-    e_s = torch.einsum("nc,ndc->nd", gs, env)
+    e_d = dot3(gda[:, None, :], env)  # [N,D]
+    e_s = dot3(gs[:, None, :], env)
     fg = _shade_adjoint(f, col, s, c, f0, e_d, e_s)
-    sd = torch.einsum("nd,ndc->nc", s.ndl_w, env)
+    sd = torch.sum(s.ndl_w[..., None] * env, dim=-2)  # [N,3]
     d_normal, d_rough = _frame_adjoint(f, fg)
     d_albedo = gd * (1.0 / math.pi) * sd
     return (d_albedo.reshape(albedo.shape), d_normal.reshape(normal.shape),

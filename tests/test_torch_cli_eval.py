@@ -150,6 +150,22 @@ def test_test_real_cli(tree, work):
             result["preds"][lvl]["depth"][0].numpy(), atol=1e-4)
 
 
+def test_test_real_fused_matches_staged(tree, work):
+    """``--fused`` (the scale fit traced per image) writes the staged
+    run's products up to the fit's float32-against-host arithmetic
+    (tests/test_cli_smoke.py:609-620)."""
+    im_list = work / "list.txt"
+    im_list.write_text(tree["photos"]["square"] + "\n")
+    argv = ["--imList", str(im_list), "--level", "2", "--isLight"] + REAL
+    for mode in ("staged", "fused"):
+        test_real.main(argv + ["--output", str(work / mode)]
+                       + (["--fused"] if mode == "fused" else []))
+    np.testing.assert_allclose(
+        np.load(work / "fused" / "square_albedo1.npy"),
+        np.load(work / "staged" / "square_albedo1.npy"),
+        rtol=1e-3, atol=1e-5)
+
+
 def test_test_real_native_resolution_products(tree, work):
     """A landscape 80x128 photo at im_hw (64, 64): the PNGs and the
     normal npy at the fitted size (40, 64), the photo at its own."""

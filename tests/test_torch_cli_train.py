@@ -28,7 +28,6 @@ import torch
 
 from inverserenderingofindoorscene_torch.cli import (
     output_brdf_light,
-    test_real,
     train_bilateral,
     train_light,
 )
@@ -210,14 +209,9 @@ def test_output_brdf_light_then_cascade1(tree, work):
 @pytest.mark.parametrize("cli,extra,match", [
     pytest.param(train_bilateral, ["--vMax", "4096"], "left out",
                  id="cli0-extra0-left out"),
-    pytest.param(test_real, ["--fused"], "A8", id="cli2-extra2-A8"),
 ])
 def test_unported_options_raise(tree, work, cli, extra, match):
-    if cli is test_real:
-        argv = ["--imList", str(work / "none.txt"), "--output",
-                str(work / "out"), "--device", "cpu", "--noKernels"]
-    else:
-        argv = _args(tree["root"], ["--experiment", str(work / "e")])
+    argv = _args(tree["root"], ["--experiment", str(work / "e")])
     with pytest.raises(NotImplementedError, match=match):
         cli.main(argv + extra)
 

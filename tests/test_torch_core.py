@@ -195,3 +195,69 @@ def test_replication_pad_matches_jax():
         torch.from_numpy(x).permute(0, 3, 1, 2), 1
     ).permute(0, 2, 3, 1).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.fixture
+def medium_matmul_precision():
+    """torch's float32 matmuls in bf16 passes (``medium``), as a worker
+    may be left with; the setting is restored after."""
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("medium")
+    yield
+    torch.set_float32_matmul_precision(before)
+
+
+def sg_envmap_vjp_np(axis, lamb, weight, g_env):
+    """The adjoint of ``oracle_np.sg_to_envmap_np``, float64 numpy."""
+    ls = oracle_np.hemisphere_dirs_np()
+    cosm1 = np.einsum("...kc,dc->...kd", axis, ls) - 1.0
+    e = np.exp(lamb[..., None] * cosm1)
+    gee = np.einsum("...dc,...kc->...kd", g_env, weight) * e
+    return (lamb[..., None] * np.einsum("...kd,dc->...kc", gee, ls),
+            np.sum(gee * cosm1, axis=-1),
+            np.einsum("...dc,...kd->...kc", g_env, e))
+
+
+@pytest.mark.parametrize("fn", ["sg_to_envmap", "sg_envmap_bwd_plain",
+                                "render_sg_bwd_plain"])
+def test_plain_sg_contractions_ignore_matmul_precision(
+        fn, medium_matmul_precision):
+    """ROADMAP C18: the port's plain SG contractions were einsums, whose
+    CPU matmul rounds by the matmul precision and by the path a process
+    is on (``medium`` put sg_to_envmap 0.13 off).  Written as broadcast
+    products and sums they give the same bits under ``medium`` as under
+    ``highest``, and stay at the float64 oracle's atol 1e-5."""
+    from inverserenderingofindoorscene_torch.ops import sg_render
+
+    rng = np.random.RandomState(0)
+    ax, lamb, wgt = sg_inputs(rng)
+    if fn == "render_sg_bwd_plain":
+        lead = lamb.shape[:-1]
+        normal = rng.uniform(-1, 1, lead + (3,))
+        normal[..., 2] = np.abs(normal[..., 2]) + 0.3
+        normal = 0.97 * normal / np.linalg.norm(normal, axis=-1,
+                                                keepdims=True)
+        args = [rng.rand(*lead, 3), normal, rng.uniform(-1, 1, lead + (1,)),
+                ax, lamb, wgt, rng.randn(*lead, 3), rng.randn(*lead, 3)]
+        run = sg_render.render_sg_bwd_plain
+    elif fn == "sg_envmap_bwd_plain":
+        # the gradients O(1), where atol 1e-5 is what float32 can hold
+        g_env = rng.randn(*lamb.shape[:-1], 128, 3) * 0.01
+        args = [ax, lamb, wgt, g_env]
+        run = sg_render.sg_envmap_bwd_plain
+        oracle = sg_envmap_vjp_np(*(np.float64(x) for x in args))
+    else:
+        args = [ax, lamb, wgt]
+        run = sg.sg_to_envmap
+        oracle = [oracle_np.sg_to_envmap_np(*(np.float64(x) for x in args))]
+    ts = [torch.from_numpy(np.float32(x)) for x in args]
+    got = run(*ts)
+    got = got if isinstance(got, tuple) else (got,)
+    torch.set_float32_matmul_precision("highest")
+    exact = run(*ts)
+    exact = exact if isinstance(exact, tuple) else (exact,)
+    for g, x in zip(got, exact):
+        assert torch.equal(g, x)
+    if fn != "render_sg_bwd_plain":
+        for g, o in zip(got, oracle):
+            np.testing.assert_allclose(g.numpy(), o, atol=ATOL)

@@ -169,11 +169,15 @@ def test_level1_brdf_only_batched_matches_jax(stacks):
 def test_staged_mode_contract(stacks, request_arrays):
     _, port_stacks = stacks
     im, im_small = request_arrays
+    im2, small2 = np.concatenate([im, im]), np.concatenate([im_small,
+                                                            im_small])
     r = InverseRenderer(port_stacks, is_light=True, device="cpu")
-    with pytest.raises(ValueError, match="strictly-B1"):
-        r(np.concatenate([im, im]), np.concatenate([im_small, im_small]))
-    with pytest.raises(NotImplementedError):
-        InverseRenderer(port_stacks, device="cpu", fused=True)
+    with pytest.raises(ValueError, match="strictly-B1.*fused=True"):
+        r(im2, small2)
+    # the fused mode takes the batch, with a scale an image
+    out = InverseRenderer(port_stacks, is_light=True, device="cpu",
+                          fused=True)(im2, small2)
+    assert tuple(out["light"]["c_light"].shape) == (2,)
     # bilateral refinement: one BilateralNets (or None) per level
     with pytest.raises(ValueError, match="bs_nets"):
         InverseRenderer(port_stacks, device="cpu", is_bs=True,
