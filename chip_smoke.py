@@ -42,20 +42,20 @@ Phases, each fatal on failure:
      ``render_sg_env`` a call at B=1 and B=4, 2 * 68 blurs an image, and
      the kernels by name in a profiled B=1 call), the chain on both
      routes under ``torch.cuda.set_sync_debug_mode("error")``, fused and
-     staged ms a request in turns, ms a batch and an image at B=4 (also
-     with cuDNN's autotuning), the idle share, peak memory; and the chain
+     staged ms a request in turns, ms a batch and an image at B=4, the
+     idle share, peak memory; and the chain
      exported with ``InverseRenderer.serialize`` at B=1 and served by
      ``deserialize_chain`` (c_light rtol 1e-5, albedo atol 1e-6);
   5. training: the cascade-0 lighting train step at full width (B=5, image
      240x320, grid 120x160, light input 480x640) from the same seeded
      weights on the kernel route and the plain route; step 1's losses
-     and light gradients agree, then 10 steps on each route are timed,
+     and light gradients agree, then 5 steps on each route are timed,
      descend, and launch each training kernel once a step on the kernel
      route;
   6. bilateral training: the bilateral train step at full width (B=2,
      image 240x320, frozen cascade-0 BRDF nets), both routes from the
      same seeded weights; step 1's losses and confidence-net gradients
-     agree, then 10 steps on each route are timed, descend, and launch
+     agree, then 5 steps on each route are timed, descend, and launch
      ``bilateral_blur`` 103 times an image a step on the kernel route;
   7. cascade recipe: the staged training recipe across the cascade
      hand-off at full width, seeded weights: 10 cascade-0 BRDF steps
@@ -66,9 +66,9 @@ Phases, each fatal on failure:
      ``sg_envmap_fwd`` launch on the kernel route); the hand-off of the
      kernel route's products in memory through ``normalize_cascade_pre``
      into the cascade-1 ``*_pre`` and ``env_pre`` maps; then, as phase 5,
-     the cascade-1 lighting step (B=5, 10 steps a route), as part 1 the
+     the cascade-1 lighting step (B=5, 5 steps a route), as part 1 the
      cascade-1 BRDF step (B=16, the 17-channel encoder), and as phase 6
-     the cascade-1 bilateral step (B=2, 10 steps a route);
+     the cascade-1 bilateral step (B=2, 5 steps a route);
   8. fine-tunes: the IIW and NYU fine-tunes at full width (B=16, IIW
      batches of 800 rows a kind in the loader's format, NYU ground truth
      at 240x320, both from the seed), seeded weights, 5 cycles each of
@@ -84,12 +84,12 @@ Phases, each fatal on failure:
      (random-weight numbers, held only to their ranges);
   9. from disk: the port's fixture writers into a temp dir outside the
      checkout (OpenRooms at 240x320 with 1920x5120 envmaps, 16 TRAIN
-     images; IIW and NYU of 16 frames), the native envmap decoder
-     bit-equal to cv2's (a cv2 fallback fails the run), the loaders'
-     items a second, ``train_brdf`` (B=16, process workers, step
+     images; IIW and NYU of 16 frames), run by a process of their own
+     while phases 3-8 use the card, the native envmap decoder bit-equal
+     to cv2's (a cv2 fallback fails the run), the light loader's items a
+     second, ``train_brdf`` (B=16, process workers, step
      checkpoints; then B=4 killed after a step checkpoint and resumed),
-     ``train_light`` on its checkpoint on both routes and with process
-     workers, one IIW and one NYU loader batch through the fine-tune
+     ``train_light`` on its checkpoint on both routes, one IIW and one NYU loader batch through the fine-tune
      steps;
  10. the other CLIs from disk, on phase 9's fixtures and checkpoints:
      ``build_cache --light`` and ``train_light --itemCache`` (2 epochs;
@@ -121,7 +121,22 @@ Phases, each fatal on failure:
      configuration (tests/test_convergence.py:37-51: 64x64, 2 scenes of
      8, brdf 32 epochs at B=4, light 12 at B=2, bilateral 2 at B=2 with
      ``--bsMid``, IIW 2 at B=2, ``--capstone``) in bf16, in a temp dir,
-     held to that test's assertions (``run_convergence.gate``).
+     held to that test's assertions (``run_convergence.gate``);
+ 13. data-parallel training: ``parallel/dryrun.py`` as two ranks, each
+     its own process, sharing the card over gloo (NCCL refuses two ranks
+     on one device) with ``cudnn.benchmark`` off, one step of each of the
+     eight train-step families of ``__graft_entry__.dryrun_multichip``
+     (the cascade-0 light step at phase 5's operating point, the rest at
+     that function's shapes; seeded confidence nets), global batch 4, two
+     rows a rank: the ranks' metrics and updated parameters bit-equal,
+     each family against the same step in one process on the whole
+     batch (metrics rtol 2e-4, bilateral 5e-4; parameters within 3e-4),
+     each training kernel once a light step and ``bilateral_blur`` 103
+     times an image a bilateral step on each rank; ms a step of the two
+     ranks' and of one process's c0 light step, the time in all_reduce,
+     peak memory a rank (logged); then a world of one on NCCL, in this
+     process, takes the c0 light step through its group, against the
+     same step with ``group=None``.
 The second-to-last line of output is the kernels' JSON record, the last
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits non-zero
 before printing any result.
@@ -185,6 +200,7 @@ from inverserenderingofindoorscene_torch.eval.metrics import (
     si_log_depth_rmse,
 )
 from inverserenderingofindoorscene_torch.ops import bilateral, build, sg_render
+from inverserenderingofindoorscene_torch.parallel import dryrun, multihost
 from inverserenderingofindoorscene_torch.pipeline.bilateral import (
     BS_MODES,
     BilateralNets,
@@ -236,17 +252,24 @@ N_REQUESTS = 20
 # before phase 4b was added, cut to fit the run)
 N_PLAIN_REQUESTS = 10
 N_DIRS = 128  # the 8x16 envmap
+# calls a phase-3 timing averages: a kernel's and the library call's 50,
+# a plain version's 10 (the SG ones take milliseconds a call; 50 before
+# phase 13 was added, cut to fit the run)
+N_TIMED_CALLS = 50
+N_TIMED_PLAIN_CALLS = 10
 TRAIN_B = 5  # the JAX light-training CLI's batch
 TRAIN_LR = 1e-4  # the reference's Adam rate
-# phases 5 and 7 (20 before phase 4b was added, cut to fit the run)
-N_TRAIN_STEPS = 10
-BS_TRAIN_STEPS = 10  # phase 6; 20 before phase 10, cut to fit the run
+# phases 5 and 7 (20 before phase 4b was added, 10 before phase 13, cut
+# to fit the run)
+N_TRAIN_STEPS = 5
+# phase 6 (20 before phase 10, 10 before phase 13, cut to fit the run)
+BS_TRAIN_STEPS = 5
 BS_TRAIN_B = 2  # the JAX bilateral-training CLI's batch
 BRDF_TRAIN_B = 16  # the JAX CLIs' default batch (cli/common.py:34)
 IIW_MAX_NUM = 800  # the IIW loader's rows a kind (data/iiw.py:25)
 # cut to fit the run: 10 before phase 10 was added, 6 before phases 11-12
 N_FT_CYCLES = 5
-N_BS_C1_STEPS = 10
+N_BS_C1_STEPS = 5  # 10 before phase 13, cut to fit the run
 FIXTURE_IMAGES = 16  # phase 9: one TRAIN scene
 CLI_WORKERS = 4  # the CLIs' default --numWorkers
 CLI_RESUME_B = 4  # the kill-and-resume run: 4 steps an epoch
@@ -400,9 +423,12 @@ def events_ms(fn, n=50, warmup=5):
 
 
 def timings(fns):
-    """(device ms, events ms) per call of each function: the device time
+    """(device ms, events ms) per call of each function (the kernel, its
+    plain version and, for the blur, the library call): the device time
     goes into the record, both into the log."""
-    return [device_ms(fn) for fn in fns], [events_ms(fn) for fn in fns]
+    calls = (N_TIMED_CALLS, N_TIMED_PLAIN_CALLS, N_TIMED_CALLS)
+    return ([device_ms(fn, n) for fn, n in zip(fns, calls)],
+            [events_ms(fn, n) for fn, n in zip(fns, calls)])
 
 
 def check_close(name, got, want, rtol, atol):
@@ -1922,32 +1948,88 @@ def cli_args(root, exp, *extra):
             *map(str, extra)]
 
 
-def write_fixtures(tmp, seed):
-    """The OpenRooms fixture at full width (one TRAIN scene), and IIW and
-    NYU fixtures of ``BRDF_TRAIN_B`` frames, timed."""
-    out = {}
-    for name, write, kw in (
-            ("openrooms", fixture.write_openrooms_fixture,
-             dict(n_scenes=1, per_scene=FIXTURE_IMAGES, n_test_scenes=0,
-                  im_hw=IM_HW, env_rc=ENV_RC, seed=seed)),
-            ("iiw", fixture.write_iiw_fixture,
-             dict(n_train=BRDF_TRAIN_B, n_test=0, seed=seed)),
-            ("nyu", fixture.write_nyu_fixture,
-             dict(n_train=BRDF_TRAIN_B, n_test=0, seed=seed))):
-        t0 = time.perf_counter()
-        out[name] = write(os.path.join(tmp, name), **kw)
+# the fixture writer's process: each writer of data/fixture.py by name,
+# with its keyword arguments as JSON (lists back to tuples: the writers
+# keep their arguments' repr in a marker file); cv2 on one thread, so
+# that the writer takes one of the host's cores from phases 3-8
+FIXTURE_WRITER = """
+import json, os, sys, time
+import cv2
+cv2.setNumThreads(1)
+from inverserenderingofindoorscene_torch.data import fixture
+out = {}
+for name, write, kw in json.loads(sys.argv[2]):
+    kw = {k: tuple(v) if isinstance(v, list) else v for k, v in kw.items()}
+    t0 = time.perf_counter()
+    root = getattr(fixture, write)(os.path.join(sys.argv[1], name), **kw)
+    out[name] = [root, kw, time.perf_counter() - t0]
+print("FIXTURES " + json.dumps(out), flush=True)
+"""
+FIXTURE_RUN_S = 900  # the writer's limit, from its start to phase 9
+
+
+def start_fixtures(tmp, seed):
+    """Start writing the OpenRooms fixture at full width (one TRAIN
+    scene) and IIW and NYU fixtures of ``BRDF_TRAIN_B`` frames under
+    ``tmp``, in a process of its own, so that the host's writing overlaps
+    phases 3-8 on the card; returns (the process, its start)."""
+    specs = [
+        ("openrooms", "write_openrooms_fixture",
+         dict(n_scenes=1, per_scene=FIXTURE_IMAGES, n_test_scenes=0,
+              im_hw=IM_HW, env_rc=ENV_RC, seed=seed)),
+        ("iiw", "write_iiw_fixture",
+         dict(n_train=BRDF_TRAIN_B, n_test=0, seed=seed)),
+        ("nyu", "write_nyu_fixture",
+         dict(n_train=BRDF_TRAIN_B, n_test=0, seed=seed))]
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", FIXTURE_WRITER, tmp, json.dumps(specs)],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, time.monotonic()
+
+
+def stop_fixtures(writer):
+    """Kill the fixture writer if it still runs."""
+    proc, _ = writer
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
+
+
+def write_fixtures(writer):
+    """Wait for the fixture writer (:func:`start_fixtures`); returns
+    {name: root}.  Fails if it failed or outlasts FIXTURE_RUN_S."""
+    proc, start = writer
+    t0 = time.perf_counter()
+    try:
+        out, err = proc.communicate(
+            timeout=max(start + FIXTURE_RUN_S - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"[from disk] the fixture writer still runs "
+                             f"{FIXTURE_RUN_S} s after its start")
+    if proc.returncode:
+        raise AssertionError(f"[from disk] the fixture writer exited "
+                             f"{proc.returncode}:\n{err[-4000:]}")
+    line = [x for x in out.splitlines() if x.startswith("FIXTURES ")]
+    roots = {}
+    for name, (root, kw, seconds) in json.loads(
+            line[-1][len("FIXTURES "):]).items():
+        roots[name] = root
         size = sum(os.path.getsize(os.path.join(d, f))
-                   for d, _, fs in os.walk(out[name]) for f in fs)
-        log(f"[from disk] {name} fixture {kw}: "
-            f"{time.perf_counter() - t0:.1f} s, {size / 2**20:.1f} MiB")
-    return out
+                   for d, _, fs in os.walk(root) for f in fs)
+        log(f"[from disk] {name} fixture {kw}: {seconds:.1f} s in the "
+            f"writer's process, {size / 2**20:.1f} MiB")
+    log(f"[from disk] the fixtures, written during phases 3-8: waited "
+        f"{time.perf_counter() - t0:.1f} s for them")
+    return roots
 
 
 def check_loaders(root):
     """The native decoder is built and bit-equal to the cv2 route on a
-    fixture envmap; the loaders' items a second, the BRDF loader in
-    process mode and the light loader in thread mode (epoch 2 of each:
-    epoch 1 also starts the process pool)."""
+    fixture envmap; the light loader's items a second in thread mode over
+    2 epochs (the BRDF loader's process pool is timed by ``train_brdf``'s
+    loader waits: its own first epoch, the pool's start, took ~11 s; cut
+    to fit the run)."""
     if not native_hdr.native_available():
         raise AssertionError("the native RGBE decoder did not build")
     ds = OpenRoomsDataset(root, im_hw=IM_HW, env_rc=ENV_RC, is_light=True,
@@ -1965,23 +2047,18 @@ def check_loaders(root):
         f"{(t1 - t0) * 1e3:.1f} ms, cv2 + numpy {(t2 - t1) * 1e3:.1f} ms, "
         "bit-equal")
     rates = {}
-    for mode, light, b in (("process", False, BRDF_TRAIN_B),
-                           ("thread", True, TRAIN_B)):
-        it = BatchIterator(OpenRoomsDataset(
-            root, im_hw=IM_HW, env_rc=ENV_RC, is_light=light,
-            is_all_light=light, sg_num=SG_NUM), b, num_workers=CLI_WORKERS,
-            mode=mode)
-        try:
-            for epoch in range(2):
-                t0 = time.perf_counter()
-                n = sum(len(batch["name"]) for batch in it)
-                rates[(mode, epoch)] = n / (time.perf_counter() - t0)
-        finally:
-            it.close()
+    it = BatchIterator(OpenRoomsDataset(
+        root, im_hw=IM_HW, env_rc=ENV_RC, is_light=True, is_all_light=True,
+        sg_num=SG_NUM), TRAIN_B, num_workers=CLI_WORKERS, mode="thread")
+    try:
+        for epoch in range(2):
+            t0 = time.perf_counter()
+            n = sum(len(batch["name"]) for batch in it)
+            rates[("thread", epoch)] = n / (time.perf_counter() - t0)
+    finally:
+        it.close()
     log(f"[from disk] loader items/s with {CLI_WORKERS} workers on "
-        f"{os.cpu_count()} host cores: BRDF items, process mode, epoch 1 "
-        f"{rates[('process', 0)]:.2f} (pool start included), epoch 2 "
-        f"{rates[('process', 1)]:.2f}; light items (22 MB env_gt), thread "
+        f"{os.cpu_count()} host cores: light items (22 MB env_gt), thread "
         f"mode, epoch 1 {rates[('thread', 0)]:.2f}, epoch 2 "
         f"{rates[('thread', 1)]:.2f}")
     return rates
@@ -2082,16 +2159,14 @@ def train_light_cli(root, tmp, brdf_exp):
     """``train_light`` at cascade 0 on the frozen nets of ``brdf_exp``'s
     checkpoint: B=5, 2 steps with the kernels, then the same from the same
     start with ``--noKernels``; step 1's losses of the two routes within
-    STEP1_TOL.  A third run, with the kernels and process workers
-    (``--loaderMode process``), times the step while no loader thread of
-    this process decodes.  Returns ({kernel: launches} of the kernel
+    STEP1_TOL (a third run that timed the kernel route with process
+    workers was cut to fit the run; ``train_brdf`` runs the process
+    pool).  Returns ({kernel: launches} of the kernel
     routes' runs, the ``CLITimer`` of the kernel route with threads, whose
     experiment is ``light_kernels`` under ``tmp``)."""
     runs = {}
     for route, flag, mode in (("kernels", "--useKernels", "thread"),
-                              ("plain", "--noKernels", "thread"),
-                              ("kernels-process", "--useKernels",
-                               "process")):
+                              ("plain", "--noKernels", "thread")):
         reset_launches()
         with CLITimer(profile_at=2) as timer:
             cli_train_light.main(cli_args(
@@ -2111,8 +2186,7 @@ def train_light_cli(root, tmp, brdf_exp):
     (tk, lk), (tp, lp) = runs["kernels"], runs["plain"]
     steps = {**dict.fromkeys(KERNELS, LIGHT_CLI_STEPS), "render_sg_env": 0,
              "bilateral_blur": 0}
-    want = {"kernels": steps, "plain": dict.fromkeys(KERNELS, 0),
-            "kernels-process": steps}
+    want = {"kernels": steps, "plain": dict.fromkeys(KERNELS, 0)}
     got = {route: launches for route, (_, launches) in runs.items()}
     if got != want:
         raise AssertionError(f"train_light launches {got}, expected {want}")
@@ -2133,7 +2207,7 @@ def train_light_cli(root, tmp, brdf_exp):
            for k, v in m.items() if not np.isfinite(v)]
     if bad:
         raise AssertionError(f"train_light: non-finite {bad}")
-    return {k: lk[k] + runs["kernels-process"][1][k] for k in lk
+    return {k: lk[k] for k in lk
             if k not in ("render_sg_env", "bilateral_blur")}, tk
 
 
@@ -2168,9 +2242,10 @@ def real_data_steps(roots, nets, dev):
             + ", ".join(f"{k} {v.item():.6g}" for k, v in metrics.items()))
 
 
-def phase_from_disk(seed, dev, nets, tmp):
-    """The loaders and the first two training CLIs from files: fixtures
-    written under ``tmp`` (outside the checkout; the caller removes it),
+def phase_from_disk(dev, nets, tmp, fixtures):
+    """The loaders and the first two training CLIs from files: the
+    fixtures that ``fixtures`` (:func:`start_fixtures`) writes under
+    ``tmp`` (outside the checkout; the caller removes it),
     the native decoder (no cv2 fallback: it raises here), ``train_brdf``
     with a kill and resume, ``train_light`` on its checkpoint with the
     kernels, and the real-data loaders into the fine-tune steps.
@@ -2191,7 +2266,7 @@ def phase_from_disk(seed, dev, nets, tmp):
         return out
 
     try:
-        roots = cell("fixtures", write_fixtures, tmp, seed)
+        roots = cell("fixtures", write_fixtures, fixtures)
         rates = cell("loaders", check_loaders, roots["openrooms"])
         OpenRoomsDataset._load_envmap_cv2 = no_cv2
         brdf_exp = cell("cli-c0-brdf", train_brdf_cli, roots["openrooms"],
@@ -2218,7 +2293,8 @@ FT_STEPS = 2  # epochs of one cycle (16 images, B=16)
 EVAL_B, EVAL_STEPS = 4, 2  # test_synthetic's default batch; batches a stage
 BS_CLI_STEPS = 2
 # phase 10's BRDF-stage loaders take 4 thread workers: a spawned pool
-# costs 9-15 s a CLI to start (phase 9 measures the process workers)
+# costs 9-15 s a CLI to start (phase 9's train_brdf runs the process
+# workers)
 THREADS = ("--numWorkers", CLI_WORKERS, "--loaderMode", "thread")
 
 
@@ -2674,7 +2750,7 @@ def phase_clis(ctx, smi):
 
 # --------------------------------------------------------------- phase 11
 
-BF16_STEPS = 6
+BF16_STEPS = 3  # 6 before phase 13, cut to fit the run
 # the JAX package's bf16-against-f32 tolerances on a step's loss
 # (tests/test_pipeline.py:163-196)
 BF16_TOL = {"brdf": 0.02, "light": 0.05}
@@ -2922,13 +2998,187 @@ def phase_learning(smi):
     return launches
 
 
+# --------------------------------------------------------------- phase 13
+
+# the data-parallel run: the ranks of parallel/dryrun.py, each its own
+# process on the one card, over gloo (NCCL refuses two ranks on one
+# device); the cascade-0 light family at phase 5's operating point
+DP_WORLD = 2
+DP_LIGHT0 = f"{IM_HW[0]},{IM_HW[1]},{ENV_RC[0]},{ENV_RC[1]}"
+DP_RUN_S = 400  # the two ranks' run, start-up included
+DP_TIMED = 1  # timed c0 light steps, logged (2 before: cut to fit the run)
+# a group step against the single-process step on the whole batch: JAX
+# tests/test_parallel.py and tests/test_shard_map.py's tolerances (Adam's
+# first update is lr g / (|g| + eps), so a gradient near zero may flip
+# sign under another reduction order)
+DP_METRIC_RTOL = {"bilateral": 5e-4}
+DP_METRIC_RTOL_DEFAULT = 2e-4
+DP_PARAM_ATOL = 3e-4
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dryrun_ranks(*extra):
+    """Run ``parallel/dryrun.py`` on the card as DP_WORLD ranks over gloo,
+    meeting on a free local port; returns each rank's {family: record}.
+    Every rank is killed if one fails or the run outlasts DP_RUN_S."""
+    port = free_port()
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "inverserenderingofindoorscene_torch."
+         "parallel.dryrun", "--initMethod", f"tcp://127.0.0.1:{port}",
+         "--world", str(DP_WORLD), "--rank", str(r), "--device", "cuda",
+         "--light0", DP_LIGHT0, *extra],
+        cwd=root, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(DP_WORLD)]
+    deadline = time.monotonic() + DP_RUN_S
+    records = []
+    try:
+        for r, proc in enumerate(procs):
+            try:
+                out, err = proc.communicate(
+                    timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"[data parallel] rank {r} still "
+                                     f"running after {DP_RUN_S} s")
+            if proc.returncode:
+                raise AssertionError(f"[data parallel] rank {r} exited "
+                                     f"{proc.returncode}:\n{err[-4000:]}")
+            line = [x for x in out.splitlines() if x.startswith("DRYRUN ")]
+            records.append(json.loads(line[-1][len("DRYRUN "):])["families"])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return records
+
+
+def nccl_world_of_one():
+    """The c0 light family through an NCCL group of this one process,
+    with ``cudnn.benchmark`` off as in the ranks; returns its record."""
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    group = multihost.initialize("nccl", f"tcp://127.0.0.1:{free_port()}",
+                                 1, 0)
+    try:
+        return dryrun.run(group, torch.device("cuda"), ("light0",),
+                          (IM_HW, ENV_RC))["light0"]
+    finally:
+        torch.distributed.destroy_process_group()
+        torch.backends.cudnn.benchmark = benchmark
+
+
+def dp_launches(name, local_b):
+    """The kernels a family's group step launches on a rank."""
+    if name.startswith("light"):
+        return {**dict.fromkeys(KERNELS, 1), "render_sg_env": 0,
+                "bilateral_blur": 0}
+    if name == "bilateral":
+        return {**dict.fromkeys(KERNELS, 0),
+                "bilateral_blur": (BLURS_FWD + BLURS_GRAD) * local_b}
+    return dict.fromkeys(KERNELS, 0)
+
+
+def check_against_single_process(tag, name, rec):
+    """A family's group step against the single-process step that its
+    rank took on the whole batch."""
+    ref = rec["ref"]
+    rtol = DP_METRIC_RTOL.get(name, DP_METRIC_RTOL_DEFAULT)
+    rel = {k: abs(rec["metrics"][k] - v) / abs(v) if v else
+           abs(rec["metrics"][k]) for k, v in ref["metrics"].items()}
+    worst = max(rel, key=rel.get)
+    log(f"{tag} {name}: metrics' worst relative difference {rel[worst]:.3e} "
+        f"({worst}), parameters' max abs difference "
+        f"{ref['max_param_diff']:.3e}, summed gradient's relative L2 "
+        f"{ref['grad_rel_l2']:.3e} (logged), total "
+        f"{rec['metrics']['total']:.6g}")
+    if sorted(rel) != sorted(rec["metrics"]) or not rel[worst] <= rtol:
+        raise AssertionError(f"{tag} {name}: metrics {rec['metrics']} "
+                             f"against {ref['metrics']}, rtol {rtol}")
+    if not ref["max_param_diff"] < DP_PARAM_ATOL:
+        raise AssertionError(f"{tag} {name}: parameters "
+                             f"{ref['max_param_diff']} apart")
+
+
+def phase_data_parallel(smi):
+    """Phase 13: the data-parallel layer on the card.  Two ranks share it
+    over gloo and take one step of each of the eight families; then a
+    world of one on NCCL takes the cascade-0 light step.  Returns
+    {kernel: launches} of the group steps, the ranks' and the world of
+    one's."""
+    torch.cuda.empty_cache()
+    families = dryrun.FAMILIES
+    t0 = time.perf_counter()
+    ranks = dryrun_ranks("--timedSteps", str(DP_TIMED))
+    log(f"[data parallel] {DP_WORLD} ranks over gloo on one card, global "
+        f"batch {dryrun.GLOBAL_B}, c0 light at {DP_LIGHT0} (image, grid), "
+        f"the rest at dryrun's shapes: {time.perf_counter() - t0:.1f} s; "
+        "s a family on each rank (set-up included): " + ", ".join(
+            f"{name} " + "/".join(f"{r[name]['seconds']:.1f}" for r in ranks)
+            for name in families))
+    launches = dict.fromkeys(KERNELS, 0)
+    for i, name in enumerate(families):
+        recs = [r[name] for r in ranks]
+        if len({r["digest"] for r in recs}) != 1 or any(
+                r["metrics"] != recs[0]["metrics"] for r in recs):
+            raise AssertionError(f"[data parallel] {name}: the ranks' "
+                                 "metrics or parameters differ")
+        for r, rec in enumerate(recs):
+            expect_launches(f"[data parallel] {name} rank {r}",
+                            rec["launches"],
+                            **dp_launches(name, rec["local_b"]))
+            for k, n in rec["launches"].items():
+                launches[k] += n
+        # rank i % DP_WORLD took its single-process step (FAMILIES[rank::
+        # world], parallel/dryrun.py)
+        check_against_single_process("[data parallel]", name,
+                                     recs[i % DP_WORLD])
+    log("[data parallel] the ranks bit-equal in every family; launches "
+        f"{launches}")
+    light = [r["light0"] for r in ranks]
+    med = [statistics.median(r["ms"]) for r in light]
+    ref_ms = statistics.median(light[0]["ref"]["ms"])
+    log(f"[data parallel] c0 light, ms a step (median of {DP_TIMED}, "
+        "after the checked step): "
+        f"{DP_WORLD} ranks sharing the card "
+        + ", ".join(f"{m:.1f}" for m in med)
+        + f"; one process on the whole batch {ref_ms:.1f}; in all_reduce "
+        "a step (each call synchronized): " + ", ".join(
+            f"{r['all_reduce']['ms']:.1f} ms ({r['all_reduce']['n']} calls,"
+            f" {r['all_reduce']['bytes']} B)" for r in light)
+        + "; peak memory a rank " + ", ".join(
+            f"{r['peak_mib']:.0f}" for r in light)
+        + f" MiB; {smi}.  Two ranks time-slicing one card say nothing of "
+        "scaling across cards")
+    t0 = time.perf_counter()
+    rec = nccl_world_of_one()
+    expect_launches("[data parallel] NCCL world of one", rec["launches"],
+                    **dp_launches("light0", rec["local_b"]))
+    for k, n in rec["launches"].items():
+        launches[k] += n
+    check_against_single_process("[data parallel] NCCL world of one",
+                                 "light0", rec)
+    log(f"[data parallel] NCCL world of one: {time.perf_counter() - t0:.1f} "
+        "s")
+    return launches
+
+
 # -------------------------------------------------------------- phase 4b
 
 
 FUSED_CHECKED = 3  # B=1 requests held fused against staged
 FUSED_B = 4  # the batch held against its images one by one
-N_FUSED_TIMED = 10  # B=1 requests a mode, fused and staged in turns
-N_FUSED_BATCHES = 2  # timed B=4 batches
+# B=1 requests a mode, fused and staged in turns (10 before phase 13,
+# cut to fit the run)
+N_FUSED_TIMED = 5
+N_FUSED_BATCHES = 1  # timed B=4 batches (2 before phase 13, cut to fit)
 # a batch's c_light against each image's B=1 call: the JAX test's rtol
 # (tests/test_pipeline.py:283-296); the same float32 chain, its
 # convolutions summed in another order at another batch size
@@ -3200,18 +3450,6 @@ def phase_fused(seed, dev, stacks, bs_nets, smi):
         f"{med:.3f} (min {min(batch_ms):.3f}, max {max(batch_ms):.3f}), "
         f"ms/image {med / FUSED_B:.3f}; peak device memory "
         f"{peak_mib:.0f} MiB; {smi}")
-    # cuDNN's default algorithm choice takes an FFT path at B=4 that
-    # launches ~200k small kernels (a profiled batch, PR 14); the same
-    # batch with autotuning on, as the CLIs serve, its first call tuning
-    torch.backends.cudnn.benchmark = True
-    try:
-        tuned_ms = [timed_request(fused, *batch)[1] for _ in range(2)]
-    finally:
-        torch.backends.cudnn.benchmark = False
-    log(f"[fused] B={FUSED_B} with cudnn.benchmark on: the tuning call "
-        f"{tuned_ms[0]:.3f} ms, then ms/batch {tuned_ms[1]:.3f}, ms/image "
-        f"{tuned_ms[1] / FUSED_B:.3f}; {smi}")
-
     log(f"[time] phase 4b to the export: "
         f"{time.perf_counter() - t_phase:.1f} s")
     served = check_served_export(fused, requests, outs, dev, smi)
@@ -3241,46 +3479,51 @@ def main(argv=None):
     smi = phase_device()
     ptxas = phase_build()
     mark("1-2 device and build")
-    records = phase_kernels(args.seed, dev, ptxas)
-    mark("3 kernels")
-    launches, serving_nets = phase_serving(args.seed)
-    mark("4 serving")
-    fused = phase_fused(args.seed, dev, *serving_nets, smi)
-    del serving_nets
-    mark("4b fused serving")
-    launches.update(phase_training(args.seed, dev))
-    mark("5 training")
-    # bilateral_blur's count: the serving run's and the bilateral training
-    # runs' together
-    launches["bilateral_blur"] += phase_bilateral_training(
-        args.seed, dev)["bilateral_blur"]
-    mark("6 bilateral training")
-    # the cascade recipe's launches: the export's, the cascade-1 light and
-    # bilateral steps'
-    cascade, stack = phase_cascade(args.seed, dev)
-    for name, n in cascade.items():
-        launches[name] += n
-    mark("7 cascade recipe")
-    # the fine-tunes' launches: the cascade-1 syntheses'
-    finetune, nets0 = phase_finetune(args.seed, dev, *stack)
-    mark("8 fine-tunes")
-    # from disk (phases 9 and 10) in a temp dir outside the checkout,
-    # removed at the end
+    # from disk (phases 9-11) in a temp dir outside the checkout, removed
+    # at the end; phase 9's fixtures are written there by a process of
+    # their own while phases 3-8 run on the card
     tmp = tempfile.mkdtemp(prefix="irois_from_disk_")
+    fixtures = start_fixtures(tmp, args.seed)
     try:
-        disk, ctx = phase_from_disk(args.seed, dev, nets0, tmp)
+        records = phase_kernels(args.seed, dev, ptxas)
+        mark("3 kernels")
+        launches, serving_nets = phase_serving(args.seed)
+        mark("4 serving")
+        fused = phase_fused(args.seed, dev, *serving_nets, smi)
+        del serving_nets
+        mark("4b fused serving")
+        launches.update(phase_training(args.seed, dev))
+        mark("5 training")
+        # bilateral_blur's count: the serving run's and the bilateral
+        # training runs' together
+        launches["bilateral_blur"] += phase_bilateral_training(
+            args.seed, dev)["bilateral_blur"]
+        mark("6 bilateral training")
+        # the cascade recipe's launches: the export's, the cascade-1 light
+        # and bilateral steps'
+        cascade, stack = phase_cascade(args.seed, dev)
+        for name, n in cascade.items():
+            launches[name] += n
+        mark("7 cascade recipe")
+        # the fine-tunes' launches: the cascade-1 syntheses'
+        finetune, nets0 = phase_finetune(args.seed, dev, *stack)
+        mark("8 fine-tunes")
+        disk, ctx = phase_from_disk(dev, nets0, tmp, fixtures)
         mark("9 from disk")
         clis = phase_clis(ctx, smi)
         mark("10 the other CLIs")
         bf16 = phase_bf16(args.seed, dev, ctx, smi)
         mark("11 bf16")
     finally:
+        stop_fixtures(fixtures)
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[from disk] the fixtures, checkpoints and outputs under {tmp} "
         "removed")
     learning = phase_learning(smi)
     mark("12 learning")
-    for run in (fused, finetune, disk, clis, bf16, learning):
+    data_parallel = phase_data_parallel(smi)
+    mark("13 data parallel")
+    for run in (fused, finetune, disk, clis, bf16, learning, data_parallel):
         for name, n in run.items():
             launches[name] += n
     for name, record in records.items():

@@ -4,10 +4,11 @@ The counterpart of the JAX package's ``models/bilateral_net.py`` (the
 reference ``BilateralLayer`` CNN): a 2-down/2-up net (k4s2 conv x2 -> k3
 conv -> upsample + skip -> k3 conv -> upsample -> k3 head) predicting a
 per-pixel confidence in [0, 1], divided by its maximum over the whole
-batch tensor.  Submodules carry the reference's state-dict names
-(``conv1``/``gn1``, ``conv2``/``gn2``, ``dconv1``/``dgn1``,
-``dconv2``/``dgn2``, ``dconvFinal``), so a reference checkpoint loads with
-``load_state_dict`` directly.
+batch tensor, and over the ranks of a process group when one is given.
+Submodules carry the reference's state-dict names (``conv1``/``gn1``,
+``conv2``/``gn2``, ``dconv1``/``dgn1``, ``dconv2``/``dgn2``,
+``dconvFinal``), so a reference checkpoint loads with ``load_state_dict``
+directly.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from inverserenderingofindoorscene_torch.core.imageops import (
     resize_bilinear,
 )
 from inverserenderingofindoorscene_torch.models.mgnet import GN_EPS
+from inverserenderingofindoorscene_torch.parallel.collectives import amax
 
 FEATS = 16
 
@@ -42,12 +44,16 @@ class ConfidenceNet(nn.Module):
         self.dgn2 = nn.GroupNorm(2, FEATS, eps=GN_EPS)
         self.dconvFinal = nn.Conv2d(FEATS, 1, 3, 1)
 
-    def forward(self, image: torch.Tensor, pred: torch.Tensor) -> torch.Tensor:
+    def forward(self, image: torch.Tensor, pred: torch.Tensor,
+                group=None) -> torch.Tensor:
         """image [B,3,H,W], pred [B,C,H,W].  Returns conf [B,1,H,W].
 
         The image is max-normalized per image (clamped to 1e-5..1,
         BilateralLayer.py:246-250) and the input concat is detached, like
-        the reference's ``.detach()``."""
+        the reference's ``.detach()``.  ``group``: the ranks whose rows
+        make up the batch; the divisor is then the maximum over all of
+        them, as the JAX step's one SPMD program takes it over the global
+        batch, and its gradient reaches the rank that holds it."""
         b = image.shape[0]
         scale = torch.clamp(torch.amax(image.reshape(b, -1), dim=1),
                             1e-5, 1.0).reshape(b, 1, 1, 1)
@@ -64,4 +70,4 @@ class ConfidenceNet(nn.Module):
         out = self.dconvFinal(replication_pad(dx2, 1))
         conf = 0.5 * (torch.tanh(out) + 1.0)
         # the maximum over the whole batch tensor (BilateralLayer.py:269)
-        return conf / torch.clamp(torch.amax(conf), min=1e-5)
+        return conf / torch.clamp(amax(conf, group), min=1e-5)

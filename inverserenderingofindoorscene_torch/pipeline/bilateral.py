@@ -50,11 +50,12 @@ class BilateralNets(nn.Module):
             generator = torch.Generator().manual_seed(0)
         init_weights(self, generator)
 
-    def confidence(self, name: str, im: torch.Tensor,
-                   target: torch.Tensor) -> torch.Tensor:
-        """Mode ``name``'s confidence [B,H,W,1] of NHWC im and target."""
+    def confidence(self, name: str, im: torch.Tensor, target: torch.Tensor,
+                   group=None) -> torch.Tensor:
+        """Mode ``name``'s confidence [B,H,W,1] of NHWC im and target
+        (divided by its maximum over ``group``'s ranks, ConfidenceNet)."""
         net = getattr(self, name)
-        return to_nhwc(net(to_nchw(im), to_nchw(target)))
+        return to_nhwc(net(to_nchw(im), to_nchw(target), group))
 
 
 def normalized_guide(albedo_pred: torch.Tensor) -> torch.Tensor:
@@ -66,11 +67,12 @@ def normalized_guide(albedo_pred: torch.Tensor) -> torch.Tensor:
     return guide / gmax.reshape(b, 1, 1, 1)
 
 
-def bs_prep(im, preds, nets=None):
+def bs_prep(im, preds, nets=None, group=None):
     """The refinement's inputs: the guide (:func:`normalized_guide`), the
     per-mode targets (rough mapped to [0, 1]), and the confidences of
-    ``nets`` (a :class:`BilateralNets`), or unit confidence when it is
-    None.  Returns (guide, targets dict, confs dict)."""
+    ``nets`` (a :class:`BilateralNets`; over ``group``'s ranks), or unit
+    confidence when it is None.  Returns (guide, targets dict, confs
+    dict)."""
     targets = {"albedo": preds["albedo"],
                "rough": 0.5 * (preds["rough"] + 1.0),
                "depth": preds["depth"]}
@@ -79,20 +81,22 @@ def bs_prep(im, preds, nets=None):
                           device=im.device)
         confs = dict.fromkeys(BS_MODES, ones)
     else:
-        confs = {k: nets.confidence(k, im, targets[k]) for k in BS_MODES}
+        confs = {k: nets.confidence(k, im, targets[k], group)
+                 for k in BS_MODES}
     return normalized_guide(preds["albedo"]), targets, confs
 
 
 def refine(nets: Optional[BilateralNets], im: torch.Tensor, preds: dict,
-           use_kernels: bool = True):
+           use_kernels: bool = True, group=None):
     """Refine albedo / rough / depth (trainBRDFBilateral.py:267-281,
     testReal.py:532-540); normal passes through, detached.
 
     The rough map is solved in [0, 1] and mapped back with clamp(2x - 1,
     -1, 1).  ``nets`` None means unit confidence.  ``use_kernels``: blur
     with the CUDA kernel (on CUDA tensors) or its plain version.
-    Returns (refined dict, confs dict, stats dict)."""
-    guide, targets, confs = bs_prep(im, preds, nets)
+    ``group``: as in :func:`bs_prep`.  Returns (refined dict, confs dict,
+    stats dict)."""
+    guide, targets, confs = bs_prep(im, preds, nets, group)
     refined, stats = {}, {}
     for name, (_, mode) in BS_MODES.items():
         refined[name], stats[name] = bilateral_solve_stats(
@@ -104,15 +108,18 @@ def refine(nets: Optional[BilateralNets], im: torch.Tensor, preds: dict,
 
 
 def bilateral_step(brdf_nets, bs_nets: BilateralNets, batch: dict,
-                   use_kernels: bool = True):
+                   use_kernels: bool = True, group=None):
     """Frozen BRDF forward + refinement + masked errors.
 
     batch: NHWC tensors im/albedo/normal/rough/depth/seg_brdf/seg_all.
-    The BRDF stack runs under ``torch.no_grad()``.  Returns (losses with
+    The BRDF stack runs under ``torch.no_grad()``.  ``group``: a process
+    group whose ranks each hold their rows of the batch; the confidences'
+    maximum and every error are then global.  Returns (losses with
     ``_raw`` and ``_bs`` variants and ``normal_raw``, aux)."""
     with torch.no_grad():
         preds = brdf_forward(brdf_nets, batch)
-    refined, confs, stats = refine(bs_nets, batch["im"], preds, use_kernels)
+    refined, confs, stats = refine(bs_nets, batch["im"], preds, use_kernels,
+                                   group)
     seg_brdf, seg_all = batch["seg_brdf"], batch["seg_all"]
 
     def fit(p, gt, seg):
@@ -124,13 +131,15 @@ def bilateral_step(brdf_nets, bs_nets: BilateralNets, batch: dict,
     for tag, pr in (("raw", preds), ("bs", refined)):
         a = torch.clamp(fit(pr["albedo"], albedo_gt, seg_brdf), 0.0, 1.0)
         d = fit(pr["depth"], batch["depth"], seg_all)
-        losses[f"albedo_{tag}"] = masked_sq_sum(a, albedo_gt, seg_brdf, 3.0)
+        losses[f"albedo_{tag}"] = masked_sq_sum(a, albedo_gt, seg_brdf, 3.0,
+                                                group)
         losses[f"rough_{tag}"] = masked_sq_sum(pr["rough"], batch["rough"],
-                                               seg_brdf, 1.0)
+                                               seg_brdf, 1.0, group)
         losses[f"depth_{tag}"] = masked_sq_sum(torch.log(d + 1.0),
-                                               log_depth_gt, seg_all, 1.0)
+                                               log_depth_gt, seg_all, 1.0,
+                                               group)
     losses["normal_raw"] = masked_sq_sum(preds["normal"], batch["normal"],
-                                         seg_all, 3.0)
+                                         seg_all, 3.0, group)
     aux = {"preds": preds, "refined": refined, "confs": confs,
            "grid_stats": stats}
     return losses, aux

@@ -126,11 +126,12 @@ def brdf_forward(nets: BRDFNets, batch: dict, heads=tuple(HEADS)) -> dict:
             for k, v in out.items()}
 
 
-def brdf_step(nets: BRDFNets, batch: dict):
-    """Forward + masked errors.  Returns (preds, errors)."""
+def brdf_step(nets: BRDFNets, batch: dict, group=None):
+    """Forward + masked errors, global over ``group``'s ranks
+    (``losses.masked``).  Returns (preds, errors)."""
     preds = brdf_forward(nets, batch)
     errors, _ = brdf_errors(preds["albedo"], preds["normal"], preds["rough"],
-                            preds["depth"], batch)
+                            preds["depth"], batch, group)
     return preds, errors
 
 

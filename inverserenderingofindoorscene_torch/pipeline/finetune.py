@@ -29,10 +29,12 @@ from inverserenderingofindoorscene_torch.core.scale import (
     ls_regress_diff_spec,
     mean_normalize,
 )
+from inverserenderingofindoorscene_torch.losses.masked import global_sums
 from inverserenderingofindoorscene_torch.losses.ranking import (
     batched_ranking_loss,
 )
 from inverserenderingofindoorscene_torch.ops.sg_render import render_sg
+from inverserenderingofindoorscene_torch.parallel.collectives import psum
 from inverserenderingofindoorscene_torch.pipeline.brdf import (
     HEADS,
     brdf_forward,
@@ -113,50 +115,69 @@ def iiw_step(nets, batch: dict, heads=tuple(HEADS)):
     return preds, torch.sum(eq_l) / b, torch.sum(dk_l) / b
 
 
-def nyu_step(nets, batch: dict, heads=tuple(HEADS)):
+def nyu_step(nets, batch: dict, heads=tuple(HEADS), group=None):
     """The BRDF forward and the NYU normal and depth losses (the
-    reference's wrapperNYU).
+    reference's wrapperNYU): :func:`brdf_forward` then
+    :func:`nyu_losses`.
 
     batch keys: im, the ground truth normal [B,h,w,3] and depth [B,h,w,1]
-    at its own size (the predictions are bilinearly resized to it),
-    seg_normal and seg_depth [B,h,w,1], and at cascade >= 1 the ``*_pre``
-    maps; ``heads``, the decoders to run (the losses read normal and
-    depth).  The depth is rescaled onto the ground truth under seg_depth
-    (``ls_regress``, coefficient detached) first.  Returns (preds,
-    losses): ``normal`` and ``depth`` (the masked errors, sums over the
-    batch over the mask's pixel count, normal also over its 3 channels)
-    and ``angle_deg``, the masked mean angle in degrees, reported only
-    (computed without gradient, so arccos's slope at +-1 reaches none);
-    preds gain ``normal_full`` and ``depth_full`` at the ground truth's
-    size."""
+    at its own size, seg_normal and seg_depth [B,h,w,1], and at cascade
+    >= 1 the ``*_pre`` maps; ``heads``, the decoders to run (the losses
+    read normal and depth); ``group`` as in :func:`nyu_losses`.  Returns
+    (preds, losses); preds gain ``normal_full`` and ``depth_full`` at the
+    ground truth's size."""
     preds = brdf_forward(nets, batch, heads)
+    losses, normal_pred, depth_pred = nyu_losses(preds["normal"],
+                                                 preds["depth"], batch, group)
+    preds = dict(preds)
+    preds["normal_full"] = normal_pred
+    preds["depth_full"] = depth_pred
+    return preds, losses
+
+
+def nyu_losses(normal_pred, depth_pred, batch: dict, group=None):
+    """The NYU losses of NHWC normal and depth predictions, which are
+    bilinearly resized to the ground truth's size first.
+
+    The depth is rescaled onto the ground truth under seg_depth
+    (``ls_regress``, coefficient detached, per image).  Returns (losses,
+    normal, depth at the ground truth's size): ``normal`` and ``depth``
+    (the masked errors, sums over the batch over the mask's pixel count,
+    normal also over its 3 channels) and ``angle_deg``, the masked mean
+    angle in degrees, reported only (computed without gradient, so
+    arccos's slope at +-1 reaches none).  Over ``group``'s ranks, each
+    holding its rows of the batch, both counts, both errors and the angle
+    are summed before the division (JAX ``nyu_step``'s ``psum``), and the
+    summed counts clamped."""
     normal_gt, depth_gt = batch["normal"], batch["depth"]
     hw = normal_gt.shape[1:3]
 
     def resize(x):
         return to_nhwc(resize_bilinear(to_nchw(x), hw))
 
-    normal_pred = resize(preds["normal"])
-    depth_pred = resize(preds["depth"])
+    normal_pred = resize(normal_pred)
+    depth_pred = resize(depth_pred)
     seg_n, seg_d = batch["seg_normal"], batch["seg_depth"]
     depth_pred = ls_regress(depth_pred.detach() * seg_d, depth_gt * seg_d,
                             depth_pred)
 
-    n_normal = torch.clamp(torch.sum(seg_n), min=1e-5)
-    n_depth = torch.clamp(torch.sum(seg_d), min=1e-5)
-    normal_err = torch.sum((normal_pred - normal_gt) ** 2 * seg_n) / n_normal
-    normal_err = normal_err / 3.0
-    depth_err = torch.sum(
-        (torch.log(depth_pred + 0.1) - torch.log(depth_gt + 0.1)) ** 2 * seg_d
-    ) / n_depth
+    normal_sum, n_normal = global_sums(
+        torch.sum((normal_pred - normal_gt) ** 2 * seg_n), torch.sum(seg_n),
+        group)
+    depth_sum, n_depth = global_sums(
+        torch.sum((torch.log(depth_pred + 0.1)
+                   - torch.log(depth_gt + 0.1)) ** 2 * seg_d),
+        torch.sum(seg_d), group)
+    n_normal = torch.clamp(n_normal, min=1e-5)
+    n_depth = torch.clamp(n_depth, min=1e-5)
+    normal_err = normal_sum / n_normal / 3.0
+    depth_err = depth_sum / n_depth
     with torch.no_grad():
         cos = torch.clamp(torch.sum(normal_pred * normal_gt, dim=-1,
                                     keepdim=True), -1.0, 1.0)
-        angle = torch.sum(torch.arccos(cos) / math.pi * 180.0 * seg_n)
+        angle = psum(torch.sum(torch.arccos(cos) / math.pi * 180.0 * seg_n),
+                     group)
         angle = angle / n_normal
 
     losses = {"normal": normal_err, "depth": depth_err, "angle_deg": angle}
-    preds = dict(preds)
-    preds["normal_full"] = normal_pred
-    preds["depth_full"] = depth_pred
-    return preds, losses
+    return losses, normal_pred, depth_pred

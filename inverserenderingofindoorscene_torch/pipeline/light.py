@@ -145,7 +145,7 @@ def light_forward(nets: LightNets, im: torch.Tensor, brdf_preds: dict,
 
 
 def light_step(brdf_nets, light_nets: LightNets, batch: dict,
-               offset: float = 1.0, use_kernels: bool = True):
+               offset: float = 1.0, use_kernels: bool = True, group=None):
     """The BRDF + light forward and the losses of lighting training.
 
     batch: NHWC tensors im/albedo/normal/rough/depth/seg_brdf/seg_all
@@ -157,12 +157,14 @@ def light_step(brdf_nets, light_nets: LightNets, batch: dict,
     ``use_pallas``: the SG decode of the reconstruction loss and the
     decode + shading of the render loss go through ``ops.sg_render``'s
     ``sg_envmap`` and ``render_sg`` (the CUDA kernels on CUDA tensors)
-    instead of ``sg_to_envmap`` + ``RenderLayer``.
+    instead of ``sg_to_envmap`` + ``RenderLayer``.  ``group``: a process
+    group whose ranks each hold their rows of the batch; every loss is
+    then the global one (``losses.masked``), as JAX's ``axis_name``.
 
     Returns (losses, aux): losses albedo/normal/rough/depth/reconst/render.
     """
     with torch.no_grad():
-        preds, errors = brdf_step(brdf_nets, batch)
+        preds, errors = brdf_step(brdf_nets, batch, group)
     preds = dict(preds)
     preds["albedo"] = mean_normalize(preds["albedo"])
     preds["depth"] = mean_normalize(preds["depth"])
@@ -188,7 +190,7 @@ def light_step(brdf_nets, light_nets: LightNets, batch: dict,
     else:
         env_pred = sg.sg_to_envmap(axis, lamb, weight, eh, ew)
     reconst_err, env_scaled = envmap_reconst_error(env_pred, env_gt, seg_env,
-                                                   offset)
+                                                   offset, group)
 
     albedo = preds["albedo"].detach()
     if use_kernels:
@@ -205,7 +207,7 @@ def light_step(brdf_nets, light_nets: LightNets, batch: dict,
         diffuse, specular = layer.forward_env(albedo, preds["normal"],
                                               preds["rough"], env_pred)
     render_err, rendered = render_error(diffuse, specular, im_small,
-                                        seg_small)
+                                        seg_small, group)
 
     losses = dict(errors)
     losses["reconst"] = reconst_err

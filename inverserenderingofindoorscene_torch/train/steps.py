@@ -14,6 +14,16 @@ step's ``optimizer`` and ``scheduler`` to the second.  The nets carry
 their compute dtype (``BRDFNets`` / ``LightNets`` ``compute_dtype``):
 in bfloat16 the conv stacks run in bf16 while Adam and the LR schedule
 act on the float32 params, and the losses read the float32 heads.
+
+Data parallel: every step takes ``group``, a ``torch.distributed`` process
+group whose ranks each hold their rows of the global batch
+(``parallel/``), the counterpart of the JAX steps' ``axis_name``.  At
+construction the step makes every rank's nets, trained and frozen, rank
+0's (``replicate_``); its losses are the global ones; after ``backward``
+the gradients are summed over the ranks in one flat all_reduce
+(``sum_grads_``), not averaged, as the JAX steps ``psum`` theirs; so the
+ranks take the step one process takes on the whole batch, and return its
+metrics.  ``group`` None is one process.
 """
 
 from __future__ import annotations
@@ -23,6 +33,12 @@ from typing import Optional
 import torch
 
 from inverserenderingofindoorscene_torch.device import resolve_device
+from inverserenderingofindoorscene_torch.parallel.collectives import (
+    pmax,
+    pmean,
+    sum_grads_,
+)
+from inverserenderingofindoorscene_torch.parallel.mesh import replicate_
 from inverserenderingofindoorscene_torch.pipeline.bilateral import (
     bilateral_step,
     bilateral_total_error,
@@ -87,21 +103,23 @@ class BRDFTrainStep:
     ``optimizer`` / ``scheduler``: an Adam over these nets' parameters and
     its schedule, shared with another step (the fine-tune cycle); by
     default the step makes its own :func:`reference_adam` from ``lr`` and
-    ``epoch_decay_steps``."""
+    ``epoch_decay_steps``.  ``group``: the ranks of a data-parallel step
+    (module docstring)."""
 
     def __init__(self, brdf_nets, albedo_w: float = 1.5,
                  normal_w: float = 1.0, rough_w: float = 0.5,
                  depth_w: float = 0.5, device=None, lr: float = 1e-4,
                  epoch_decay_steps: Optional[int] = None, optimizer=None,
-                 scheduler=None):
+                 scheduler=None, group=None):
         self.weights = (albedo_w, normal_w, rough_w, depth_w)
         self._setup(brdf_nets, device, lr, epoch_decay_steps, optimizer,
-                    scheduler)
+                    scheduler, group)
 
     def _setup(self, brdf_nets, device, lr, epoch_decay_steps, optimizer,
-               scheduler):
+               scheduler, group):
         self.device = resolve_device(device)
-        self.brdf_nets = brdf_nets.to(self.device)
+        self.group = group
+        self.brdf_nets = replicate_(brdf_nets.to(self.device), group)
         if optimizer is None:
             optimizer, scheduler = reference_adam(
                 self.brdf_nets.parameters(), lr, epoch_decay_steps)
@@ -109,7 +127,7 @@ class BRDFTrainStep:
 
     def loss(self, batch: dict):
         batch = {k: v.to(self.device) for k, v in batch.items()}
-        _, errors = brdf_step(self.brdf_nets, batch)
+        _, errors = brdf_step(self.brdf_nets, batch, self.group)
         return brdf_total_error(errors, *self.weights), errors
 
     def load_optax_state(self, mu: dict, nu: dict, count: int) -> None:
@@ -129,6 +147,7 @@ class BRDFTrainStep:
         for p in self.brdf_nets.parameters():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        sum_grads_(self.brdf_nets.parameters(), self.group)
         self.optimizer.step()
         if self.scheduler is not None:
             self.scheduler.step()
@@ -144,19 +163,22 @@ class IIWTrainStep(BRDFTrainStep):
     take a zero gradient).  Metrics: ``eq``, ``darker``, ``total``.  At
     cascade 1 the batch carries the ``*_pre`` maps
     (``pipeline.finetune.synthesize_pre``).  ``device``, ``lr``,
-    ``epoch_decay_steps``, ``optimizer`` and ``scheduler`` as in
-    :class:`BRDFTrainStep`."""
+    ``epoch_decay_steps``, ``optimizer``, ``scheduler`` and ``group`` as
+    in :class:`BRDFTrainStep`; over a group the two losses, each a mean
+    over the rank's images, are averaged over the ranks (JAX's
+    ``pmean``)."""
 
     def __init__(self, brdf_nets, rank_w: float = 2.0, device=None,
                  lr: float = 1e-4, epoch_decay_steps: Optional[int] = None,
-                 optimizer=None, scheduler=None):
+                 optimizer=None, scheduler=None, group=None):
         self.rank_w = rank_w
         self._setup(brdf_nets, device, lr, epoch_decay_steps, optimizer,
-                    scheduler)
+                    scheduler, group)
 
     def loss(self, batch: dict):
         batch = {k: v.to(self.device) for k, v in batch.items()}
         _, eq_l, dk_l = iiw_step(self.brdf_nets, batch, heads=("albedo",))
+        eq_l, dk_l = pmean(eq_l, self.group), pmean(dk_l, self.group)
         return self.rank_w * (eq_l + dk_l), {"eq": eq_l, "darker": dk_l}
 
 
@@ -170,15 +192,15 @@ class NYUTrainStep(BRDFTrainStep):
     def __init__(self, brdf_nets, normal_w: float = 4.5,
                  depth_w: float = 4.5, device=None, lr: float = 1e-4,
                  epoch_decay_steps: Optional[int] = None, optimizer=None,
-                 scheduler=None):
+                 scheduler=None, group=None):
         self.normal_w, self.depth_w = normal_w, depth_w
         self._setup(brdf_nets, device, lr, epoch_decay_steps, optimizer,
-                    scheduler)
+                    scheduler, group)
 
     def loss(self, batch: dict):
         batch = {k: v.to(self.device) for k, v in batch.items()}
         _, losses = nyu_step(self.brdf_nets, batch,
-                             heads=("normal", "depth"))
+                             heads=("normal", "depth"), group=self.group)
         total = self.normal_w * losses["normal"] + self.depth_w * losses[
             "depth"]
         return total, losses
@@ -193,15 +215,18 @@ class LightTrainStep:
     takes one step and returns the metrics: the four BRDF errors,
     ``reconst``, ``render`` and ``total``, as detached scalars.
     :meth:`loss` computes (total, losses) without the update, for taking
-    gradients on their own."""
+    gradients on their own.  ``group``: the ranks of a data-parallel step
+    (module docstring)."""
 
     def __init__(self, brdf_nets, light_nets, reconst_w: float = 10.0,
                  render_w: float = 1.0, offset: float = 1.0,
                  use_kernels: bool = True, device=None, lr: float = 1e-4,
-                 epoch_decay_steps: Optional[int] = None):
+                 epoch_decay_steps: Optional[int] = None, group=None):
         self.device = resolve_device(device)
-        self.brdf_nets = brdf_nets.to(self.device).requires_grad_(False)
-        self.light_nets = light_nets.to(self.device)
+        self.group = group
+        self.brdf_nets = replicate_(
+            brdf_nets.to(self.device).requires_grad_(False), group)
+        self.light_nets = replicate_(light_nets.to(self.device), group)
         self.reconst_w, self.render_w = reconst_w, render_w
         self.offset = offset
         self.use_kernels = use_kernels
@@ -212,7 +237,7 @@ class LightTrainStep:
         batch = {k: v.to(self.device) for k, v in batch.items()}
         losses, _ = light_step(self.brdf_nets, self.light_nets, batch,
                                offset=self.offset,
-                               use_kernels=self.use_kernels)
+                               use_kernels=self.use_kernels, group=self.group)
         total = (self.reconst_w * losses["reconst"]
                  + self.render_w * losses["render"])
         return total, losses
@@ -229,6 +254,7 @@ class LightTrainStep:
         self.optimizer.zero_grad(set_to_none=True)
         total, losses = self.loss(batch)
         total.backward()
+        sum_grads_(self.light_nets.parameters(), self.group)
         self.optimizer.step()
         if self.scheduler is not None:
             self.scheduler.step()
@@ -249,15 +275,19 @@ class BilateralTrainStep:
     ``_raw``/``_bs`` losses, ``normal_raw``, ``total``, and the true
     vertex counts, ``nvert_<mode>`` (the largest of the batch) and their
     maximum ``nvert_max``.  :meth:`loss` computes (total, losses, stats)
-    without the update."""
+    without the update.  ``group``: the ranks of a data-parallel step
+    (module docstring); the confidences' batch maximum and the vertex
+    counts are then taken over all of them."""
 
     def __init__(self, brdf_nets, bs_nets, albedo_w: float = 1.5,
                  rough_w: float = 0.5, depth_w: float = 0.5,
                  use_kernels: bool = True, device=None, lr: float = 1e-4,
-                 epoch_decay_steps: Optional[int] = None):
+                 epoch_decay_steps: Optional[int] = None, group=None):
         self.device = resolve_device(device)
-        self.brdf_nets = brdf_nets.to(self.device).requires_grad_(False)
-        self.bs_nets = bs_nets.to(self.device)
+        self.group = group
+        self.brdf_nets = replicate_(
+            brdf_nets.to(self.device).requires_grad_(False), group)
+        self.bs_nets = replicate_(bs_nets.to(self.device), group)
         self.weights = (albedo_w, rough_w, depth_w)
         self.use_kernels = use_kernels
         self.optimizer, self.scheduler = reference_adam(
@@ -266,7 +296,8 @@ class BilateralTrainStep:
     def loss(self, batch: dict):
         batch = {k: v.to(self.device) for k, v in batch.items()}
         losses, aux = bilateral_step(self.brdf_nets, self.bs_nets, batch,
-                                     use_kernels=self.use_kernels)
+                                     use_kernels=self.use_kernels,
+                                     group=self.group)
         total = bilateral_total_error(losses, *self.weights)
         return total, losses, aux["grid_stats"]
 
@@ -274,13 +305,18 @@ class BilateralTrainStep:
         self.optimizer.zero_grad(set_to_none=True)
         total, losses, stats = self.loss(batch)
         total.backward()
+        sum_grads_(self.bs_nets.parameters(), self.group)
         self.optimizer.step()
         if self.scheduler is not None:
             self.scheduler.step()
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["total"] = total.detach()
         for mode, st in stats.items():
-            metrics[f"nvert_{mode}"] = st["nvert"].max()
+            nvert = st["nvert"].max()
+            if self.group is not None:
+                # on the step's device: NCCL takes no CPU tensor
+                nvert = pmax(nvert.to(self.device), self.group)
+            metrics[f"nvert_{mode}"] = nvert
         metrics["nvert_max"] = max(metrics[f"nvert_{m}"] for m in stats)
         return metrics
 
