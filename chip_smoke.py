@@ -60,7 +60,9 @@ Phases, each fatal on failure:
   7. cascade recipe: the staged training recipe across the cascade
      hand-off at full width, seeded weights: 10 cascade-0 BRDF steps
      (B=16, step 1's errors and per-net gradients against a float64 copy
-     on a B=2 slice); the cascade-0 export of that batch on both routes
+     on a B=2 slice), then the step's loss and backward twice from the
+     trained state under ``torch.use_deterministic_algorithms(True)``,
+     every net's gradients bit-equal (ROADMAP C17); the cascade-0 export of that batch on both routes
      (the BRDF products and the SG tensor bit-equal, diffuse and specular
      within the serving tolerances, one ``render_sg_fwd`` and one
      ``sg_envmap_fwd`` launch on the kernel route); the hand-off of the
@@ -116,12 +118,16 @@ Phases, each fatal on failure:
      the BRDF step's conv TFLOP/s of both dtypes; each kernel wrapper
      raises on a bf16 CUDA input; ``test_real --computeDtype bfloat16
      --level 2 --isLight --isBS`` on phase 10's first photo (finite
-     products, phase 10's launches a photo);
+     outputs, phase 10's launches a photo; the products' host writes,
+     phase 10's code, left out);
  12. the learning gate: ``cli/run_convergence.py`` at the JAX gate's
      configuration (tests/test_convergence.py:37-51: 64x64, 2 scenes of
      8, brdf 32 epochs at B=4, light 12 at B=2, bilateral 2 at B=2 with
      ``--bsMid``, IIW 2 at B=2, ``--capstone``) in bf16, in a temp dir,
-     held to that test's assertions (``run_convergence.gate``);
+     under ``torch.use_deterministic_algorithms(True)`` (an op without a
+     deterministic path raises; the CLIs then keep cuDNN's autotuning
+     off), so the run repeats bit for bit: the digest of its stages is
+     logged; held to that test's assertions (``run_convergence.gate``);
  13. data-parallel training: ``parallel/dryrun.py`` as two ranks, each
      its own process, sharing the card over gloo (NCCL refuses two ranks
      on one device) with ``cudnn.benchmark`` off, one step of each of the
@@ -134,9 +140,20 @@ Phases, each fatal on failure:
      each training kernel once a light step and ``bilateral_blur`` 103
      times an image a bilateral step on each rank; ms a step of the two
      ranks' and of one process's c0 light step, the time in all_reduce,
-     peak memory a rank (logged); then a world of one on NCCL, in this
-     process, takes the c0 light step through its group, against the
-     same step with ``group=None``.
+     peak memory a rank (logged); then, in the same rank processes,
+     data-parallel serving: the level-2 fused renderer with lighting and
+     seeded confidence nets at both levels, at phase 4's operating
+     point, serves each rank's 2 rows of a seeded batch of 4 through the
+     group (``InverseRenderer(..., fused=True, group=g)``), against one
+     process serving the 4 rows with ``group=None`` from the same
+     weights: the ranks' weights equal, the scales within rtol 1e-4,
+     maps, envmaps and diffuse at phase 4's tolerances, specular by
+     relative L1 1e-3, each refined map bit-equal to the rank's own
+     refinement of the group call's maps, the confidences (their maximum
+     taken over the group) within rtol 1e-6, 2 ``render_sg_env`` and
+     2 * 68 blurs an image on each rank; then a world of one on NCCL, in
+     this process, takes the c0 light step and serves the batch of 4
+     through its group, against the same with ``group=None``.
 The second-to-last line of output is the kernels' JSON record, the last
 ``{"ok": true, "device": {...}}``.  Without a CUDA card it exits non-zero
 before printing any result.
@@ -144,10 +161,16 @@ before printing any result.
 
 from __future__ import annotations
 
+import os
+
+# cuBLAS adds without atomics only with a fixed workspace, which it reads
+# when CUDA starts; phases 7 and 12 run under
+# torch.use_deterministic_algorithms, which refuses cuBLAS without it
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
 import argparse
 import copy
 import json
-import os
 import re
 import shutil
 import statistics
@@ -1454,6 +1477,42 @@ def train_brdf(tag, nets, batch, dev, row_limit=None):
     return step.brdf_nets
 
 
+def check_brdf_repeats(tag, nets, batch, dev):
+    """ROADMAP C17's probe, fatal: the BRDF step's loss and backward twice
+    from one state and batch under ``torch.use_deterministic_algorithms
+    (True)`` (an op without a deterministic CUDA path raises), every
+    net's gradients bit-equal.  Autotuning is off for it, as in a
+    deterministic CLI run (``setup_device``): it would time every
+    deterministic algorithm of every shape first (~6.5 s)."""
+    step = make_brdf_train_step(nets, device=dev, lr=TRAIN_LR)
+    grads = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    benchmark = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True)
+    try:
+        for _ in range(2):
+            step.brdf_nets.zero_grad(set_to_none=True)
+            step.loss(batch)[0].backward()
+            grads.append({n: p.grad.clone() for n, p in
+                          step.brdf_nets.named_parameters()
+                          if p.grad is not None})
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.benchmark = benchmark
+    torch.cuda.synchronize()
+    differ = sorted({n.split(".")[0] for n, g in grads[0].items()
+                     if not torch.equal(g, grads[1][n])})
+    log(f"{tag} the step's loss and backward twice from one state and "
+        "batch under torch.use_deterministic_algorithms(True): "
+        f"{time.perf_counter() - t0:.2f} s; nets whose gradients differ: "
+        f"{differ or 'none'}")
+    if differ or sorted(grads[0]) != sorted(
+            n for n, _ in step.brdf_nets.named_parameters()):
+        raise AssertionError(f"{tag} the step does not repeat: {differ}")
+
+
 def check_export(products):
     """The two routes' products of one batch: the BRDF maps and the SG
     tensor bit-equal (no kernel runs before them), diffuse and specular
@@ -1557,6 +1616,7 @@ def phase_cascade(seed, dev):
         f"cudnn.benchmark on: {time.perf_counter() - t0:.1f} s (set-up)")
 
     brdf0 = train_brdf("[cascade c0 brdf]", brdf0, batch, dev, row_limit=12)
+    check_brdf_repeats("[cascade c0 brdf]", brdf0, batch, dev)
     products, launches = export_routes(brdf0, light0.to(dev), batch)
     c1 = hand_off(products["kernels"][0], batch)
     del products
@@ -2750,7 +2810,8 @@ def phase_clis(ctx, smi):
 
 # --------------------------------------------------------------- phase 11
 
-BF16_STEPS = 3  # 6 before phase 13, cut to fit the run
+# 6 before phase 13, 3 before data-parallel serving, cut to fit the run
+BF16_STEPS = 2
 # the JAX package's bf16-against-f32 tolerances on a step's loss
 # (tests/test_pipeline.py:163-196)
 BF16_TOL = {"brdf": 0.02, "light": 0.05}
@@ -2904,8 +2965,10 @@ def check_wrappers_refuse_bf16(dev):
 
 def bf16_test_real(ctx, smi):
     """``test_real --computeDtype bfloat16 --level 2 --isLight --isBS`` on
-    the first of phase 10's photos: finite products, phase 10's launches
-    a photo."""
+    the first of phase 10's photos: the bf16 stacks served, finite
+    outputs of every level, phase 10's launches a photo.  The products'
+    host writes (~13 s, the same code as phase 10's f32 photos, which
+    write and check them) are left out, cut to fit the run."""
     with open(os.path.join(ctx["tmp"], "photos", "list.txt")) as f:
         first = f.readline().strip()
     im_list = os.path.join(ctx["tmp"], "photos", "bf16.txt")
@@ -2916,8 +2979,13 @@ def bf16_test_real(ctx, smi):
             "--isLight", "--isBS", "--device", "cuda", "--computeDtype",
             "bfloat16", "--experimentBRDF0", ctx["brdf_exp"],
             "--experimentLight0", ctx["light_exp"]]
-    with PhotoTimer() as timer:
-        _, launches = launch_delta(lambda: cli_test_real.main(argv))
+    write_products = cli_test_real.write_products
+    cli_test_real.write_products = lambda *a, **kw: None
+    try:
+        with PhotoTimer() as timer:
+            _, launches = launch_delta(lambda: cli_test_real.main(argv))
+    finally:
+        cli_test_real.write_products = write_products
     expect_launches("test_real bf16", launches, render_sg_env=2,
                     bilateral_blur=2 * BLURS_FWD)
     (renderer, *_), result = timer.first
@@ -2925,17 +2993,11 @@ def bf16_test_real(ctx, smi):
     if dtypes != {"bfloat16"}:
         raise AssertionError(f"test_real bf16 served {dtypes}")
     check_shapes(result)
-    name = os.path.splitext(os.path.basename(first))[0]
-    for lvl in range(2):
-        for prod in ("albedo", "normal", "rough", "depth", "albedoBS",
-                     "depthBS", "envmapSG", "cLight"):
-            arr = np.load(os.path.join(out, f"{name}_{prod}{lvl}.npy"))
-            if not np.isfinite(arr).all():
-                raise AssertionError(f"test_real bf16 {name} {prod}{lvl}")
     log(f"[bf16] test_real --computeDtype bfloat16 --level 2 --isLight "
         f"--isBS on {os.path.basename(first)}: chain ms "
         f"{rounded(timer.times['chain'])} (cuDNN's autotuning of the bf16 "
-        f"shapes included); finite products; launches {launches}; {smi}")
+        f"shapes included); finite outputs (the products' writes left "
+        f"out); launches {launches}; {smi}")
     return launches
 
 
@@ -2972,18 +3034,28 @@ LEARNING_STAGES = {"brdf", "light", "bilateral", "bilateral_mid",
 def phase_learning(smi):
     """Phase 12: the convergence harness (``cli/run_convergence.py``) at
     the JAX gate's configuration, in a temp dir outside the checkout,
-    held to the JAX gate's assertions (``run_convergence.gate``).
-    Returns {kernel: launches} of the run."""
+    under ``torch.use_deterministic_algorithms(True)`` in this process
+    (``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts; the CLIs'
+    ``setup_device`` then keeps autotuning off), held to the JAX gate's
+    assertions (``run_convergence.gate``).  Returns {kernel: launches} of
+    the run."""
     out = tempfile.mkdtemp(prefix="irois_learning_")
+    benchmark = torch.backends.cudnn.benchmark
+    torch.use_deterministic_algorithms(True)
     try:
         summary, launches = launch_delta(lambda: run_convergence.main(
             ["--out", out, *LEARNING_ARGS]))
     finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.benchmark = benchmark
         shutil.rmtree(out, ignore_errors=True)
     stages = summary["stages"]
     for name, rec in stages.items():
         log(f"[learning] {name}: " + json.dumps(
             {k: v for k, v in rec.items() if k != "level"}))
+    log("[learning] under torch.use_deterministic_algorithms(True), "
+        "cudnn.benchmark off; sha256 of the stages without their wall "
+        f"times: {run_convergence.stages_digest(stages)}")
     if set(stages) != LEARNING_STAGES:
         raise AssertionError(f"[learning] stages {sorted(stages)}")
     failed = run_convergence.gate(stages)
@@ -3014,6 +3086,14 @@ DP_TIMED = 1  # timed c0 light steps, logged (2 before: cut to fit the run)
 DP_METRIC_RTOL = {"bilateral": 5e-4}
 DP_METRIC_RTOL_DEFAULT = 2e-4
 DP_PARAM_ATOL = 3e-4
+# data-parallel serving, a rank's rows against one process's call on the
+# whole batch: the scales at phase 4b's batch-against-images rtol (a
+# rank's B=2 convolutions may take other cuDNN algorithms than B=4's,
+# autotuning off: C21), the maps and lighting at dryrun.SERVE_TOL (phase
+# 4's), the confidences (divided by their maximum over the group) rtol
+# 1e-6
+DP_SERVE_SCALE_RTOL = 1e-4  # BATCH_RTOL
+DP_SERVE_CONF_RTOL = 1e-6
 
 
 def free_port():
@@ -3026,8 +3106,9 @@ def free_port():
 
 def dryrun_ranks(*extra):
     """Run ``parallel/dryrun.py`` on the card as DP_WORLD ranks over gloo,
-    meeting on a free local port; returns each rank's {family: record}.
-    Every rank is killed if one fails or the run outlasts DP_RUN_S."""
+    meeting on a free local port; returns each rank's line ({"families":
+    {family: record}, "serve": record}).  Every rank is killed if one
+    fails or the run outlasts DP_RUN_S."""
     port = free_port()
     root = os.path.dirname(os.path.abspath(__file__))
     procs = [subprocess.Popen(
@@ -3051,7 +3132,7 @@ def dryrun_ranks(*extra):
                 raise AssertionError(f"[data parallel] rank {r} exited "
                                      f"{proc.returncode}:\n{err[-4000:]}")
             line = [x for x in out.splitlines() if x.startswith("DRYRUN ")]
-            records.append(json.loads(line[-1][len("DRYRUN "):])["families"])
+            records.append(json.loads(line[-1][len("DRYRUN "):]))
     finally:
         for proc in procs:
             if proc.poll() is None:
@@ -3061,15 +3142,19 @@ def dryrun_ranks(*extra):
 
 
 def nccl_world_of_one():
-    """The c0 light family through an NCCL group of this one process,
-    with ``cudnn.benchmark`` off as in the ranks; returns its record."""
+    """The c0 light family and the serving record through an NCCL group of
+    this one process, with ``cudnn.benchmark`` off as in the ranks;
+    returns their records."""
     benchmark = torch.backends.cudnn.benchmark
     torch.backends.cudnn.benchmark = False
+    dev = torch.device("cuda")
     group = multihost.initialize("nccl", f"tcp://127.0.0.1:{free_port()}",
                                  1, 0)
     try:
-        return dryrun.run(group, torch.device("cuda"), ("light0",),
-                          (IM_HW, ENV_RC))["light0"]
+        light = dryrun.run(group, dev, ("light0",), (IM_HW, ENV_RC))["light0"]
+        serve = dryrun.serve(group, dev, *dryrun.serving_nets(ENV_RC),
+                             *dryrun.serving_batch(IM_HW, ENV_RC))[0]
+        return light, serve
     finally:
         torch.distributed.destroy_process_group()
         torch.backends.cudnn.benchmark = benchmark
@@ -3107,16 +3192,54 @@ def check_against_single_process(tag, name, rec):
                              f"{ref['max_param_diff']} apart")
 
 
+def check_serving(tag, rec):
+    """A rank's data-parallel serving record (``parallel/dryrun.serve``):
+    its rows against one process's call on the whole batch, its
+    confidences against one process's confidences of the group call's
+    maps, its launches."""
+    worst = {"scales (relative)": max(rec["scales"].values()),
+             "maps and lighting (allclose ratio)": max(
+                 rec["close"].values()),
+             "specular (relative L1)": max(rec["specular_rel_l1"].values()),
+             "refined vs its own refinement": rec["refined_max_abs"],
+             "confidences (relative)": max(rec["conf_rel"].values())}
+    log(f"{tag}: B={rec['local_b']} of {dryrun.GLOBAL_B}, {rec['ms']:.1f} "
+        f"ms the batch (the renderer's first call), launches "
+        f"{rec['launches']}; against one process: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in worst.items())
+        + "; maps max abs " + ", ".join(
+            f"{k} {v:.2e}" for k, v in rec["maps_max_abs"].items())
+        + "; the confidences with this rank's own maximum (logged) "
+        + ", ".join(f"{k} {v:.2e}" for k, v in
+                    rec["conf_local_rel"].items())
+        + "; against the one process's confidences of its own maps "
+        "(logged, C21) " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                     rec["conf_call_rel"].items())
+        + f"; {rec['seconds']:.1f} s, set-up included")
+    limits = {"scales (relative)": DP_SERVE_SCALE_RTOL,
+              "maps and lighting (allclose ratio)": 1.0,
+              "specular (relative L1)": SPECULAR_REL_L1,
+              "refined vs its own refinement": 0.0,
+              "confidences (relative)": DP_SERVE_CONF_RTOL}
+    over = {k: v for k, v in worst.items() if not v <= limits[k]}
+    if over:
+        raise AssertionError(f"{tag}: {over} against {limits}")
+    expect_launches(tag, rec["launches"], render_sg_env=2,
+                    bilateral_blur=2 * BLURS_FWD * rec["local_b"])
+
+
 def phase_data_parallel(smi):
     """Phase 13: the data-parallel layer on the card.  Two ranks share it
-    over gloo and take one step of each of the eight families; then a
-    world of one on NCCL takes the cascade-0 light step.  Returns
-    {kernel: launches} of the group steps, the ranks' and the world of
-    one's."""
+    over gloo, take one step of each of the eight families and serve a
+    batch through the group; then a world of one on NCCL takes the
+    cascade-0 light step and serves the batch.  Returns {kernel:
+    launches} of the group steps and group calls, the ranks' and the
+    world of one's."""
     torch.cuda.empty_cache()
     families = dryrun.FAMILIES
     t0 = time.perf_counter()
-    ranks = dryrun_ranks("--timedSteps", str(DP_TIMED))
+    lines = dryrun_ranks("--timedSteps", str(DP_TIMED), "--serve", DP_LIGHT0)
+    ranks = [line["families"] for line in lines]
     log(f"[data parallel] {DP_WORLD} ranks over gloo on one card, global "
         f"batch {dryrun.GLOBAL_B}, c0 light at {DP_LIGHT0} (image, grid), "
         f"the rest at dryrun's shapes: {time.perf_counter() - t0:.1f} s; "
@@ -3157,14 +3280,26 @@ def phase_data_parallel(smi):
             f"{r['peak_mib']:.0f}" for r in light)
         + f" MiB; {smi}.  Two ranks time-slicing one card say nothing of "
         "scaling across cards")
+    serve = [line["serve"] for line in lines]
+    if len({rec["digest"] for rec in serve}) != 1:
+        raise AssertionError("[data parallel] the ranks serve different "
+                             "weights")
+    for r, rec in enumerate(serve):
+        check_serving(f"[data parallel] serving, rank {r}", rec)
+        for k, n in rec["launches"].items():
+            launches[k] += n
+    log(f"[data parallel] serving: the ranks serve one set of weights; "
+        f"{smi}")
     t0 = time.perf_counter()
-    rec = nccl_world_of_one()
+    rec, served = nccl_world_of_one()
     expect_launches("[data parallel] NCCL world of one", rec["launches"],
                     **dp_launches("light0", rec["local_b"]))
-    for k, n in rec["launches"].items():
-        launches[k] += n
     check_against_single_process("[data parallel] NCCL world of one",
                                  "light0", rec)
+    check_serving("[data parallel] NCCL world of one, serving", served)
+    for run in (rec, served):
+        for k, n in run["launches"].items():
+            launches[k] += n
     log(f"[data parallel] NCCL world of one: {time.perf_counter() - t0:.1f} "
         "s")
     return launches
@@ -3175,9 +3310,9 @@ def phase_data_parallel(smi):
 
 FUSED_CHECKED = 3  # B=1 requests held fused against staged
 FUSED_B = 4  # the batch held against its images one by one
-# B=1 requests a mode, fused and staged in turns (10 before phase 13,
-# cut to fit the run)
-N_FUSED_TIMED = 5
+# B=1 requests a mode, fused and staged in turns (10 before phase 13, 5
+# before data-parallel serving, cut to fit the run)
+N_FUSED_TIMED = 3
 N_FUSED_BATCHES = 1  # timed B=4 batches (2 before phase 13, cut to fit)
 # a batch's c_light against each image's B=1 call: the JAX test's rtol
 # (tests/test_pipeline.py:283-296); the same float32 chain, its

@@ -111,14 +111,18 @@ def check_ported(opt) -> None:
 
 def setup_device(opt) -> torch.device:
     """``--device`` resolved; refuses the kernels off the card, and turns
-    on cuDNN's per-shape autotuning (ROADMAP C7)."""
+    on cuDNN's per-shape autotuning (ROADMAP C7) unless
+    ``torch.use_deterministic_algorithms`` is on: autotuning picks the
+    algorithms by timing, so two runs may take different ones, and a
+    deterministic run keeps it off."""
     from inverserenderingofindoorscene_torch.device import resolve_device
 
     device = resolve_device(opt.device)
     if device.type != "cuda" and getattr(opt, "useKernels", False):
         raise ValueError("the CUDA kernels need --device cuda; pass "
                          "--noKernels to run their plain versions")
-    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.benchmark = (
+        not torch.are_deterministic_algorithms_enabled())
     return device
 
 

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import glob
+import hashlib
 import json
 import os
 import os.path as osp
@@ -499,6 +500,19 @@ def gate(stages: dict) -> list:
         for k in ("whdr", "normal_mean_deg", "si_log_depth_rmse"):
             check(t[k] < i[k], f"capstone {k} trained < init", rec)
     return failed
+
+
+def stages_digest(stages: dict) -> str:
+    """sha256 of the stages' JSON (keys sorted) without their wall times
+    (the ``*_s`` keys): equal digests, a repeated run."""
+
+    def strip(x):
+        if isinstance(x, dict):
+            return {k: strip(v) for k, v in x.items() if not k.endswith("_s")}
+        return x
+
+    text = json.dumps(strip(stages), sort_keys=True)
+    return hashlib.sha256(text.encode()).hexdigest()
 
 
 def parse_args(argv=None):

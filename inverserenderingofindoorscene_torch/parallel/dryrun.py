@@ -28,6 +28,14 @@ clock to a synchronize on a CUDA device): N steps through the group,
 with every all_reduce timed (a synchronize on each side), and on the
 rank that runs its single-process step, N of those.  Each family's
 record has its seconds, set-up included.
+
+``--serve H,W,R,C`` adds a serving record (``"serve"`` in the line,
+:func:`serve`): the level-2 fused renderer with lighting and seeded
+confidence nets at both levels (image HxW, lighting grid RxC) serves this
+rank's rows of a seeded global batch of 4 through the group; then, from
+the same weights, one process serves the whole batch with ``group=None``,
+and the record holds how far this rank's rows are from their
+counterparts there.
 """
 
 from __future__ import annotations
@@ -50,7 +58,13 @@ from inverserenderingofindoorscene_torch.ops import bilateral, sg_render
 from inverserenderingofindoorscene_torch.parallel import multihost
 from inverserenderingofindoorscene_torch.parallel.mesh import shard_batch
 from inverserenderingofindoorscene_torch.pipeline.bilateral import (
+    BS_MODES,
     BilateralNets,
+    bs_prep,
+)
+from inverserenderingofindoorscene_torch.pipeline.inference import (
+    InverseRenderer,
+    refine_bs,
 )
 from inverserenderingofindoorscene_torch.pipeline.brdf import BRDFNets
 from inverserenderingofindoorscene_torch.pipeline.light import LightNets
@@ -318,6 +332,174 @@ def run(group, device, families=FAMILIES, light0=(LIGHT_HW, LIGHT_RC),
     return out
 
 
+# a rank's rows of the served batch against the single-process call's:
+# (rtol, atol) of an allclose, the serving chain's tolerances on the card
+# (chip_smoke.py's CHAIN_TOL, phase 4; the maps as the envmap); specular,
+# the kernel's specular times a fitted scalar, by its relative L1
+# distance (ROADMAP C2)
+SERVE_TOL = {"maps": (1e-3, 1e-5), "env_img": (1e-3, 1e-5),
+             "diffuse": (1e-3, 1e-5)}
+PRED_KEYS = ("albedo", "normal", "rough", "depth")
+
+
+def serving_nets(rc, seed=0):
+    """The level-2 renderer's seeded nets: [(BRDFNets, LightNets)] of both
+    cascades (lighting grid ``rc``) and a ``BilateralNets`` a level."""
+    gen = torch.Generator().manual_seed(seed)
+    stacks = [(BRDFNets(lvl, generator=gen),
+               LightNets(cascade_level=lvl, env_rows=rc[0], env_cols=rc[1],
+                         generator=gen)) for lvl in (0, 1)]
+    return stacks, [BilateralNets(gen) for _ in stacks]
+
+
+def serving_batch(hw, rc, seed=21, b=GLOBAL_B):
+    """A seeded global batch of photos (linear RGB) and their lighting-grid
+    images, numpy float32."""
+    rng = np.random.RandomState(seed)
+    return (rng.rand(b, *hw, 3).astype(np.float32) ** 2.2,
+            rng.rand(b, *rc, 3).astype(np.float32) ** 2.2)
+
+
+def nets_digest(renderer) -> str:
+    """sha256 of every weight a renderer serves."""
+    h = hashlib.sha256()
+    for net in [n for pair in renderer._nets for n in pair] + [
+            n for n in renderer._bs_nets if n is not None]:
+        for t in net.state_dict().values():
+            h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def allclose_ratio(got, want, rtol, atol) -> float:
+    """max |got - want| / (atol + rtol |want|): at most 1 where the two
+    are allclose."""
+    want = want.double()
+    return float(((got.double() - want).abs() / (atol + rtol * want.abs()))
+                 .max())
+
+
+def rel_l1(got, want) -> float:
+    want = want.double()
+    return float((got.double() - want).abs().sum() / want.abs().sum())
+
+
+def max_rel(got, want) -> float:
+    """max |got - want| / |want|, 0 where the two are equal."""
+    want = want.double()
+    diff = (got.double() - want).abs()
+    return float(torch.where(diff == 0, 0.0, diff / want.abs()).max())
+
+
+def confidences(bs_nets, im, all_preds, group):
+    """{"level.mode": the confidence [B,H,W,1]} of each level's maps in
+    ``all_preds``, its maximum taken over ``group`` (collective)."""
+    confs = {}
+    for lvl, (preds, nets) in enumerate(zip(all_preds, bs_nets)):
+        for k, v in bs_prep(im, preds, nets, group)[2].items():
+            confs[f"{lvl}.{k}"] = v
+    return confs
+
+
+def gather_rows(x, group):
+    """Every rank's ``x`` concatenated along dim 0 in rank order, on every
+    rank, in ``x``'s own memory layout (a convolution of another layout
+    rounds otherwise): one all_reduce (SUM) of a zero buffer holding this
+    rank's rows in its place, exact, on gloo and NCCL alike."""
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    # the dims in memory order (dim 0 outermost): a contiguous view
+    order = sorted(range(x.dim()), key=lambda d: -x.stride(d))
+    rows = x.permute(order)
+    n = rows.shape[0]
+    buf = rows.new_zeros((world * n,) + tuple(rows.shape[1:]))
+    buf[rank * n:(rank + 1) * n] = rows
+    dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+    return buf.permute([order.index(d) for d in range(x.dim())])
+
+
+def serve(group, device, stacks, bs_nets, im, im_small, warm_first=False):
+    """The data-parallel serving record of one rank (module docstring).
+
+    ``stacks`` / ``bs_nets``: the same weights on every rank; ``im`` /
+    ``im_small``: the global batch (numpy), of which this rank serves its
+    rows.  Returns (record, the group call's outputs): the record's
+    distances are each over this rank's rows, against the single-process
+    call.
+
+    The confidences are held against one process's confidences of the
+    group call's maps, every rank's gathered (``conf_rel``; the
+    negative control ``conf_local_rel``): the single-process call's own
+    maps differ from a rank's in their last bits where the card's
+    convolutions take other algorithms at B=2 than at B=4 (ROADMAP C21),
+    and the confidence nets carry that on (``conf_call_rel``)."""
+    t0 = time.perf_counter()
+    rank, world = dist.get_rank(group), dist.get_world_size(group)
+    start, stop = multihost.local_batch_slice(rank, world, len(im))
+    kw = dict(is_light=True, is_bs=True, bs_nets=bs_nets, fused=True,
+              device=device)
+    renderer = InverseRenderer(stacks, group=group, **kw)
+    local = (im[start:stop], im_small[start:stop])
+    if warm_first:
+        renderer(*local)
+    reset_launches()
+    synchronize(device)
+    t1 = time.perf_counter()
+    out = renderer(*local)
+    synchronize(device)
+    ms = (time.perf_counter() - t1) * 1e3
+    launches = read_launches()
+    one = InverseRenderer(stacks, **kw)
+    if warm_first:
+        one(im, im_small)
+    ref = one(im, im_small)
+    rows = slice(start, stop)
+    im_local = torch.as_tensor(local[0], device=device)
+    rec = {"digest": nets_digest(renderer), "local_b": stop - start,
+           "launches": launches, "ms": ms, "scales": {}, "close": {},
+           "specular_rel_l1": {}, "maps_max_abs": {}}
+    with torch.inference_mode():
+        for lvl in range(len(stacks)):
+            got, want = out["lights"][lvl], ref["lights"][lvl]
+            for k in ("c_light", "c_albedo"):
+                rec["scales"][f"{k}{lvl}"] = max_rel(got[k], want[k][rows])
+            for k in ("env_img", "diffuse"):
+                rec["close"][f"{k}{lvl}"] = allclose_ratio(
+                    got[k], want[k][rows], *SERVE_TOL[k])
+            rec["specular_rel_l1"][f"{lvl}"] = rel_l1(
+                got["specular"], want["specular"][rows])
+            for k in PRED_KEYS:
+                g, w = out["preds"][lvl][k], ref["preds"][lvl][k][rows]
+                rec["close"][f"{k}{lvl}"] = allclose_ratio(
+                    g, w, *SERVE_TOL["maps"])
+                rec["maps_max_abs"][f"{k}{lvl}"] = float(
+                    (g.double() - w.double()).abs().max())
+        # the refinement against this rank's own refinement of the group
+        # call's maps, and the confidences against the single process's
+        rec["refined_max_abs"] = max(
+            float((out["refined"][lvl][k] - v).abs().max())
+            for lvl, nets in enumerate(bs_nets)
+            for k, v in refine_bs(im_local, out["preds"][lvl], nets,
+                                  renderer.use_kernels, group).items())
+        im_all = torch.as_tensor(im, device=device)
+        conf = confidences(bs_nets, im_local, out["preds"], group)
+        conf_local = confidences(bs_nets, im_local, out["preds"], None)
+        gathered = [{k: gather_rows(preds[k], group) for k in BS_MODES}
+                    for preds in out["preds"]]
+        conf_ref = confidences(bs_nets, im_all, gathered, None)
+        conf_call = confidences(bs_nets, im_all, ref["preds"], None)
+        for key, got, want in (("conf_rel", conf, conf_ref),
+                               ("conf_local_rel", conf_local, conf_ref),
+                               ("conf_call_rel", conf, conf_call)):
+            rec[key] = {k: max_rel(v, want[k][rows]) for k, v in got.items()}
+    rec["seconds"] = time.perf_counter() - t0
+    return rec, out
+
+
+def parse_shape(text):
+    """"H,W,R,C" -> ((H, W), (R, C))."""
+    h, w, r, c = (int(v) for v in text.split(","))
+    return (h, w), (r, c)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--initMethod", required=True,
@@ -333,6 +515,9 @@ def main(argv=None) -> int:
     parser.add_argument("--warm", action="store_true",
                         help="a loss and backward before each step")
     parser.add_argument("--timedSteps", type=int, default=0)
+    parser.add_argument("--serve", default=None,
+                        help="H,W,R,C: also the serving record at this "
+                        "image and lighting grid")
     parser.add_argument("--threads", type=int, default=None)
     args = parser.parse_args(argv)
     if args.threads:
@@ -344,19 +529,21 @@ def main(argv=None) -> int:
         torch.backends.cudnn.benchmark = False
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
-    light0 = (LIGHT_HW, LIGHT_RC)
-    if args.light0:
-        h, w, r, c = (int(v) for v in args.light0.split(","))
-        light0 = ((h, w), (r, c))
+    light0 = parse_shape(args.light0) if args.light0 else (LIGHT_HW,
+                                                           LIGHT_RC)
     group = multihost.initialize("gloo", args.initMethod, args.world,
                                  args.rank)
+    line = {"rank": args.rank, "world": args.world}
     try:
-        out = run(group, device, FAMILIES, light0, args.warm,
-                  args.timedSteps)
+        line["families"] = run(group, device, FAMILIES, light0, args.warm,
+                               args.timedSteps)
+        if args.serve:
+            hw, rc = parse_shape(args.serve)
+            line["serve"] = serve(group, device, *serving_nets(rc),
+                                  *serving_batch(hw, rc), args.warm)[0]
     finally:
         dist.destroy_process_group()
-    print("DRYRUN " + json.dumps({"rank": args.rank, "world": args.world,
-                                  "families": out}), flush=True)
+    print("DRYRUN " + json.dumps(line), flush=True)
     return 0
 
 

@@ -17,8 +17,11 @@ chain on it.  :meth:`InverseRenderer.serialize` exports the fused chain
 through ``torch.export`` and :func:`deserialize_chain` serves it without
 the model classes.
 The JAX package's vertex-capacity option ``v_max`` has no counterpart:
-the port's grids have exactly as many vertices as occupied cells; nor
-has its ``param_sharding`` yet (data-parallel serving, ROADMAP A10).
+the port's grids have exactly as many vertices as occupied cells.  Its
+``param_sharding`` (replicated weights, the batch sharded over a mesh)
+is ``InverseRenderer(..., fused=True, group=g)``: every rank of the
+``torch.distributed`` group serves rank 0's weights on its own rows of
+the batch.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from inverserenderingofindoorscene_torch.core.scale import (
 )
 from inverserenderingofindoorscene_torch.device import resolve_device
 from inverserenderingofindoorscene_torch.ops.sg_render import render_sg_env
+from inverserenderingofindoorscene_torch.parallel.mesh import replicate_
 from inverserenderingofindoorscene_torch.pipeline.bilateral import (
     BS_MODES,
     bs_prep,
@@ -269,13 +273,16 @@ def _cascade1_extra(im, preds, diffuse, specular):
     ]
 
 
-def refine_bs(im, preds, bs_nets=None, use_kernels=True):
+def refine_bs(im, preds, bs_nets=None, use_kernels=True, group=None):
     """Bilateral refinement of albedo / rough / depth (testReal.py:532-540)
     with the confidences of ``bs_nets`` (a ``BilateralNets``; None means
     unit confidence).  ``use_kernels`` blurs with the CUDA kernel
     ``ops.bilateral.bilateral_blur`` (on CUDA tensors) or its plain
-    version.  Returns the refined NHWC maps keyed albedo / rough / depth."""
-    refined, _, _ = refine(bs_nets, im, preds, use_kernels)
+    version.  ``group``: the ranks whose rows make up the batch; the
+    confidences are then divided by their maximum over every rank's
+    images (a collective call).  Returns the refined NHWC maps keyed
+    albedo / rough / depth."""
+    refined, _, _ = refine(bs_nets, im, preds, use_kernels, group)
     return {k: refined[k] for k in BS_MODES}
 
 
@@ -307,10 +314,20 @@ class InverseRenderer:
     ``compute_dtype`` (``test_real --computeDtype bfloat16`` builds bf16
     stacks); their heads, and so every kernel's inputs, are float32
     either way.
+
+    ``group`` (fused mode only): a ``torch.distributed`` process group
+    to serve on, data-parallel, the counterpart of the JAX renderer's
+    ``param_sharding``.  Construction broadcasts rank 0's weights to
+    every rank (``parallel.mesh.replicate_``, collective), and every call
+    is collective: each rank passes its own rows of the batch (split by
+    ``parallel.mesh.shard_batch`` / ``multihost.local_batch_slice``) and
+    gets their outputs.  The chain needs no communication (each image has
+    its own scales); the confidence nets divide by their maximum over
+    every rank's images, as the JAX program does over the global batch.
     """
 
     def __init__(self, stacks, *, is_light=True, is_bs=False, bs_nets=None,
-                 use_kernels=True, fused=False, device=None):
+                 use_kernels=True, fused=False, device=None, group=None):
         self.level = len(stacks)
         if self.level not in (1, 2):
             raise ValueError(f"level must be 1 or 2, got {self.level}")
@@ -320,6 +337,11 @@ class InverseRenderer:
         self.is_light = is_light
         self.use_kernels = use_kernels
         self.fused = fused
+        if group is not None and not fused:
+            raise ValueError(
+                "serving on a group needs fused=True: staged mode fits one "
+                "global cLight/cAlbedo scale on the host, a photo a call")
+        self.group = group
         self._nets = [
             (b.to(self.device).eval(), l.to(self.device).eval())
             for b, l in stacks
@@ -334,6 +356,9 @@ class InverseRenderer:
             bs_list = [bs_nets] * self.level
         self._bs_nets = [None if n is None else n.to(self.device).eval()
                          for n in bs_list]
+        for net in [n for pair in self._nets for n in pair] + self._bs_nets:
+            if net is not None:
+                replicate_(net, group)
 
     def _run_chain(self, im, im_small, fov, light_post):
         """BRDF -> light -> BRDF -> light on device tensors, with the
@@ -393,7 +418,7 @@ class InverseRenderer:
         with torch.inference_mode():
             out = self._run_chain(im, im_small, fov, light_post)
             out["refined"] = [
-                refine_bs(im, p, nets, self.use_kernels)
+                refine_bs(im, p, nets, self.use_kernels, self.group)
                 for p, nets in zip(out["preds"], self._bs_nets)
             ] if self.is_bs else None
         return out
@@ -424,6 +449,9 @@ class InverseRenderer:
         either device."""
         if not self.fused:
             raise ValueError("serialize requires fused=True")
+        if self.group is not None:
+            raise ValueError("serialize exports one process's chain; build "
+                             "the renderer without a group")
         chain = _Chain(self, float(fov))
         params = {k: v.detach() for k, v in chain.named_parameters()}
         example = (

@@ -10,10 +10,16 @@ port's losses through the group with their gradients, and saves them.
 With ``light`` first it is one rank of tests/test_torch_parallel_jax.py:
 it loads the test's BRDF and light weights, takes one cascade-0 light
 step through the group on its rows of ``synthetic_batch`` and saves the
-metrics, the updated light parameters and their summed gradients.  It
-imports the port and numpy, never JAX.
+metrics, the updated light parameters and their summed gradients.
+With ``serve`` first it is one rank of tests/test_torch_parallel_serve.py:
+it loads the test's weights and batch, serves its rows through the group
+with ``parallel/dryrun.serve`` (which also takes the single-process call
+and the distances), then the same rows on every rank, and tries staged
+mode and ``serialize`` on the group; it saves the record and the
+outputs.  It imports the
+port and numpy, never JAX.
 
-    python tests/torch_parallel_worker.py [light] INIT_METHOD WORLD RANK IN OUT
+    python tests/torch_parallel_worker.py [light|serve] INIT_METHOD WORLD RANK IN OUT
 """
 
 import os
@@ -91,17 +97,66 @@ def light_rank(init_method, world, rank, src, dst):
     torch.distributed.destroy_process_group()
 
 
+def serve_rank(init_method, world, rank, src, dst):
+    import torch
+
+    from inverserenderingofindoorscene_torch.parallel import dryrun, multihost
+    from inverserenderingofindoorscene_torch.pipeline.bilateral import (
+        BilateralNets,
+    )
+    from inverserenderingofindoorscene_torch.pipeline.brdf import BRDFNets
+    from inverserenderingofindoorscene_torch.pipeline.inference import (
+        InverseRenderer,
+    )
+    from inverserenderingofindoorscene_torch.pipeline.light import LightNets
+
+    cfg = torch.load(src)
+    group = multihost.initialize_cpu_cluster(init_method, world, rank)
+    rows, cols = cfg["env_rc"]
+    stacks, bs_nets = [], []
+    with torch.device("meta"):
+        for lvl in range(2):
+            stacks.append((BRDFNets(lvl), LightNets(
+                cascade_level=lvl, env_rows=rows, env_cols=cols)))
+            bs_nets.append(BilateralNets())
+    for lvl, (brdf, light) in enumerate(stacks):
+        brdf.load_state_dict(cfg["brdf"][lvl], assign=True)
+        light.load_state_dict(cfg["light"][lvl], assign=True)
+        bs_nets[lvl].load_state_dict(cfg["bs"][lvl], assign=True)
+    im, im_small = cfg["im"].numpy(), cfg["im_small"].numpy()
+    record, out = dryrun.serve(group, torch.device("cpu"), stacks, bs_nets,
+                               im, im_small, warm_first=True)
+    result = {"record": record, "out": out}
+    # the first rows of the batch on every rank: equal inputs
+    kw = dict(is_light=True, is_bs=True, bs_nets=bs_nets, device="cpu")
+    renderer = InverseRenderer(stacks, fused=True, group=group, **kw)
+    n = record["local_b"]
+    result["same"] = renderer(im[:n], im_small[:n])
+    try:
+        InverseRenderer(stacks, group=group, **kw)
+    except ValueError as e:
+        result["staged_error"] = str(e)
+    try:
+        renderer.serialize(im.shape[1:3], im_small.shape[1:3])
+    except ValueError as e:
+        result["serialize_error"] = str(e)
+    torch.save(result, dst)
+    torch.distributed.destroy_process_group()
+
+
 def main():
-    light = sys.argv[1] == "light"
-    init_method, world, rank, src, dst = sys.argv[2 if light else 1:]
+    mode = sys.argv[1] if sys.argv[1] in ("light", "serve") else None
+    init_method, world, rank, src, dst = sys.argv[2 if mode else 1:]
     world, rank = int(world), int(rank)
     sys.path.insert(0, ROOT)
     import numpy as np
     import torch
 
     torch.set_num_threads(1)
-    if light:
+    if mode == "light":
         return light_rank(init_method, world, rank, src, dst)
+    if mode == "serve":
+        return serve_rank(init_method, world, rank, src, dst)
     from inverserenderingofindoorscene_torch.losses import masked
     from inverserenderingofindoorscene_torch.parallel import collectives
     from inverserenderingofindoorscene_torch.parallel import multihost
