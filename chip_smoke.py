@@ -98,10 +98,17 @@ Phases, each fatal on failure:
      the first cached batch against the direct loader under the cache's
      contract); ``train_bilateral`` on both routes (step 1's losses
      within phase 6's tolerance, ``bilateral_blur`` 103 times an image a
-     step); ``train_finetune_iiw`` at cascade 0 and, where h5py imports,
-     ``output_brdf_light`` and ``train_finetune_nyu`` at cascade 1 (else
-     the cascade-1 synthesis of ``common.make_pre_synth`` alone, one
-     ``render_sg_fwd``, against the plain route); ``test_real --level 2
+     step); ``output_brdf_light`` at cascade 0 (one ``render_sg_fwd`` and
+     one ``sg_envmap_fwd`` a batch), its files written and read by the
+     port's HDF5 codec (``utils/h5.py``), the first batch's read back
+     through ``load_cascade_pre`` / ``load_env_pre`` bit-equal to
+     ``normalize_cascade_pre`` on the products computed in memory, and the
+     codec's round trip and times on the host; cascade 1 from those files:
+     ``train_brdf``, ``train_light`` and ``train_bilateral`` (2 steps
+     each, the last two on the first's checkpoint) and ``test_synthetic
+     --stage light``; ``train_finetune_iiw`` at cascade 0 and
+     ``train_finetune_nyu`` at cascade 1 (its ``*_pre`` synthesis one
+     ``render_sg_fwd`` a cycle); ``test_real --level 2
      --isLight --isBS`` on 2 photos (2 ``render_sg_env`` launches a
      photo; the first photo's lighting and refinement against the plain
      route at the serving tolerances); ``test_synthetic`` at its three
@@ -206,6 +213,8 @@ from inverserenderingofindoorscene_torch.data.openrooms import (
     PRE_STEMS,
     BatchIterator,
     OpenRoomsDataset,
+    load_cascade_pre,
+    load_env_pre,
     normalize_cascade_pre,
 )
 from inverserenderingofindoorscene_torch.native import hdr as native_hdr
@@ -263,6 +272,7 @@ from inverserenderingofindoorscene_torch.train.steps import (
     make_nyu_train_step,
 )
 from inverserenderingofindoorscene_torch.utils import checkpoint as ckpt
+from inverserenderingofindoorscene_torch.utils import h5
 from inverserenderingofindoorscene_torch.utils.logging import MetricLogger
 
 IM_HW = (240, 320)
@@ -271,9 +281,10 @@ SG_NUM = 12
 # cut to fit the run: 100 before phase 10 was added, 50 before phases
 # 11-12, 30 before phase 4b
 N_REQUESTS = 20
-# phase 4's plain route end to end: the first 10 requests (all of them
-# before phase 4b was added, cut to fit the run)
-N_PLAIN_REQUESTS = 10
+# phase 4's plain route end to end: the first 5 requests (all of them
+# before phase 4b was added, 10 before cli-export and cli-c1; cut to fit
+# the run)
+N_PLAIN_REQUESTS = 5
 N_DIRS = 128  # the 8x16 envmap
 # calls a phase-3 timing averages: a kernel's and the library call's 50,
 # a plain version's 10 (the SG ones take milliseconds a call; 50 before
@@ -497,8 +508,7 @@ def phase_device():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("[device] image libraries for the data loaders (a probe, fails "
-        "nothing): " + ", ".join(probe_import(m) for m in ("PIL", "cv2",
-                                                             "h5py")))
+        "nothing): " + ", ".join(probe_import(m) for m in ("PIL", "cv2")))
     return smi
 
 
@@ -1585,14 +1595,13 @@ def hand_off(products, batch):
     for k, m in means.items():
         check_close(f"hand-off {k} mean", m, torch.full_like(m, 1 / 3),
                     1e-4, 0.0)
-    h5 = probe_import("h5py")
     log(f"[cascade] hand-off in memory: "
         + ", ".join(f"{k} {tuple(c1[k].shape)}" for k in (*PRE_STEMS,
                                                           "env_pre"))
         + "; per-image means of albedo_pre / depth_pre "
         + " / ".join(f"{float(m.min()):.7f}-{float(m.max()):.7f}"
                      for m in means.values())
-        + f"; files are not written here ({h5})")
+        + "; the files: phase 10's cli-export and cli-c1")
     return c1
 
 
@@ -2228,7 +2237,9 @@ def train_light_cli(root, tmp, brdf_exp):
     for route, flag, mode in (("kernels", "--useKernels", "thread"),
                               ("plain", "--noKernels", "thread")):
         reset_launches()
-        with CLITimer(profile_at=2) as timer:
+        # the kernel route's step 2 is profiled (both routes' before
+        # cli-export and cli-c1; cut to fit the run)
+        with CLITimer(profile_at=2 if route == "kernels" else None) as timer:
             cli_train_light.main(cli_args(
                 root, os.path.join(tmp, "light_" + route), "--batchSize",
                 TRAIN_B, "--numWorkers", CLI_WORKERS, "--loaderMode", mode,
@@ -2239,10 +2250,12 @@ def train_light_cli(root, tmp, brdf_exp):
             f"route, {CLI_WORKERS} {mode} workers, {LIGHT_CLI_STEPS} steps on "
             "the frozen nets of train_brdf's epoch-1 checkpoint: ms "
             + timer.summary() + f"; launches {runs[route][1]} "
-            "(phase 5's in-memory train-c0-light step beside it); the "
-            "profiled step's ops by host time:")
-        log(timer.prof.key_averages().table(sort_by="self_cpu_time_total",
-                                            row_limit=8))
+            "(phase 5's in-memory train-c0-light step beside it)"
+            + ("; the profiled step's ops by host time:" if timer.prof
+               else ""))
+        if timer.prof:
+            log(timer.prof.key_averages().table(
+                sort_by="self_cpu_time_total", row_limit=8))
     (tk, lk), (tp, lp) = runs["kernels"], runs["plain"]
     steps = {**dict.fromkeys(KERNELS, LIGHT_CLI_STEPS), "render_sg_env": 0,
              "bilateral_blur": 0}
@@ -2485,7 +2498,9 @@ def cell_bilateral(ctx, smi):
     root, tmp = ctx["roots"]["openrooms"], ctx["tmp"]
     runs = {}
     for route, flag in (("kernels", "--useKernels"), ("plain", "--noKernels")):
-        with CLITimer(profile_at=2) as timer:
+        # the kernel route's step 2 is profiled (both routes' before
+        # cli-export and cli-c1; cut to fit the run)
+        with CLITimer(profile_at=2 if route == "kernels" else None) as timer:
             _, launches = launch_delta(lambda: cli_train_bilateral.main(
                 cli_args(root, os.path.join(tmp, "bs_" + route),
                          "--batchSize", BS_TRAIN_B, *THREADS, "--maxSteps",
@@ -2533,14 +2548,13 @@ def finetune_args(ctx, kind, cascade, *extra):
                     *extra)
 
 
-def cell_finetune(ctx, smi, h5py_ok):
+def cell_finetune(ctx, smi):
     """cli-ft: ``train_finetune_iiw`` at cascade 0, 2 cycles at B=16 from
     phase 9's BRDF checkpoint; then ``train_finetune_nyu`` at cascade 1,
-    where each NYU batch's ``*_pre`` maps come from phase 9's cascade-0
+    whose synthetic batches read the ``*_pre`` files cli-export wrote and
+    whose NYU batches get their ``*_pre`` maps from phase 9's cascade-0
     checkpoints through ``common.make_pre_synth`` (one ``render_sg_fwd``
-    a cycle).  Without h5py (the synthetic cascade-1 batches read
-    ``.h5`` files) the CLI's synthesis alone runs, on a NYU loader batch,
-    and is held against the plain route.  Returns the launches."""
+    a cycle).  Returns the launches."""
     torch.cuda.reset_peak_memory_stats()
     with CLITimer() as timer:
         _, launches = launch_delta(lambda: cli_finetune_iiw.main(
@@ -2562,43 +2576,19 @@ def cell_finetune(ctx, smi, h5py_ok):
 
     frozen = ["--brdf0Experiment", ctx["brdf_exp"], "--light0Experiment",
               ctx["light_exp"]]
-    if h5py_ok:
-        torch.cuda.reset_peak_memory_stats()
-        with CLITimer() as timer:
-            _, got = launch_delta(lambda: cli_finetune_nyu.main(
-                finetune_args(ctx, "nyu", 1, *frozen)))
-        finite_lines("train_finetune_nyu c1", timer, FT_STEPS)
-        expect_launches("train_finetune_nyu c1", got, render_sg_fwd=FT_STEPS)
-        st = timer.times["step"]
-        log(f"[cli-ft] train_finetune_nyu c1 B={BRDF_TRAIN_B}, {FT_STEPS} "
-            f"cycles, *_pre synthesized inline: the synthetic step ms "
-            f"{rounded(st[0::2])}, the NYU step ms {rounded(st[1::2])}; "
-            f"peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; "
-            f"launches {got}; {smi}")
-        return {k: launches[k] + got[k] for k in KERNELS}
-    dev = ctx["dev"]
-    opt = cli_finetune_nyu.parse_args(finetune_args(ctx, "nyu", 1, *frozen))
-    gen = torch.Generator().manual_seed(opt.seed + 7)
-    synth, got = launch_delta(
-        lambda: cli_common.make_pre_synth(opt, gen, dev))
-    expect_launches("make_pre_synth set-up", got)
-    batch = cli_common.stage_batch(next(iter(BatchIterator(NYUDataset(
-        opt.nyuImRoot, opt.nyuNormalRoot, opt.nyuDepthRoot, opt.nyuSegRoot,
-        opt.nyuList, im_hw=IM_HW), BRDF_TRAIN_B, num_workers=CLI_WORKERS))),
-        dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    _, got = launch_delta(lambda: synth(batch))
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
-    expect_launches("make_pre_synth", got, render_sg_fwd=1)
-    log(f"[cli-ft] train_finetune_nyu --cascadeLevel 1's synthesis "
-        f"(common.make_pre_synth on phase 9's cascade-0 checkpoints) on one "
-        f"NYU loader batch B={BRDF_TRAIN_B}: {ms:.3f} ms (cuDNN's autotuning "
-        f"included), launches {got}; {smi}")
-    brdf0, light0 = cli_common.load_frozen_cascade0(opt, gen, dev)
-    synth_routes("[cli-ft]", brdf0.to(dev), light0.to(dev), batch)
+    torch.cuda.reset_peak_memory_stats()
+    with CLITimer() as timer:
+        _, got = launch_delta(lambda: cli_finetune_nyu.main(
+            finetune_args(ctx, "nyu", 1, *frozen)))
+    finite_lines("train_finetune_nyu c1", timer, FT_STEPS)
+    expect_launches("train_finetune_nyu c1", got, render_sg_fwd=FT_STEPS)
+    st = timer.times["step"]
+    log(f"[cli-ft] train_finetune_nyu c1 B={BRDF_TRAIN_B}, {FT_STEPS} "
+        f"cycles, *_pre synthesized inline: the synthetic step ms "
+        f"{rounded(st[0::2])}, the NYU step ms {rounded(st[1::2])}; "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; "
+        f"launches {got}; {smi}")
     return {k: launches[k] + got[k] for k in KERNELS}
 
 
@@ -2752,29 +2742,174 @@ def cell_eval(ctx, smi, real_out):
     return launches
 
 
+# reads and writes a codec timing takes the least of, on the host
+CODEC_REPEATS = 3
+C1_STEPS = 2  # cli-c1's steps a CLI, at the batches phase 7 autotuned
+
+
+def export_args(ctx):
+    return cli_args(
+        ctx["roots"]["openrooms"], os.path.join(ctx["tmp"], "unused"),
+        "--brdfExperiment", ctx["brdf_exp"], "--lightExperiment",
+        ctx["light_exp"], "--batchSize", 4, *THREADS)
+
+
+def check_codec(smi):
+    """The port's HDF5 codec on the card's host: one full-size map and one
+    SG tensor written and read back bit-equal, each the least of
+    CODEC_REPEATS times."""
+    rows = h5.time_codec(CODEC_REPEATS)
+    log("[cli-export] the HDF5 codec (utils/h5.py) on the card's host, "
+        f"least of {CODEC_REPEATS}, round trips bit-equal: " + "; ".join(
+            f"{name} {shape} ({size} bytes): write {w:.4f} s, read {r:.4f} s"
+            for name, shape, size, w, r in rows) + f"; {smi}")
+
+
+def check_handoff_files(ctx):
+    """The first batch that ``output_brdf_light`` wrote, read back through
+    the port's reader (``load_cascade_pre`` / ``load_env_pre``), against
+    ``normalize_cascade_pre`` on the products ``export_step`` computes
+    here on the same checkpoints and batch: bit-equal."""
+    dev = ctx["dev"]
+    opt = cli_output_brdf_light.parse_args(export_args(ctx))
+    gen = cli_common.pin_seeds(opt.seed)
+    brdf = cli_train_light.load_frozen_brdf(opt, gen, dev).to(dev)
+    light = cli_output_brdf_light.load_frozen_light(opt, gen, dev).to(dev)
+    loader = cli_common.make_loader(opt, "TRAIN", is_light=True,
+                                    shuffle=False)
+    try:
+        np_batch = next(iter(loader))
+    finally:
+        loader.close()
+    products, _ = export_step(brdf, light,
+                              cli_common.stage_batch(np_batch, dev),
+                              offset=opt.offset, use_kernels=opt.useKernels)
+    checked, envs = 0, 0
+    for n, name in enumerate(np_batch["name"]):
+        want = normalize_cascade_pre({
+            key: products[key[:-len("_pre")]][n].permute(2, 0, 1).cpu()
+            .numpy() for key in PRE_STEMS})
+        got = load_cascade_pre(name, 1)
+        for key in PRE_STEMS:
+            if not np.array_equal(got[key], want[key]):
+                raise AssertionError(
+                    f"hand-off file {key} of {name} differs from the "
+                    "products in memory by up to "
+                    f"{np.abs(got[key] - want[key]).max():.3g}")
+            checked += 1
+        env, ind = load_env_pre(name, 1, float(np_batch["env_ind"][n, 0]),
+                                SG_NUM, ENV_RC)
+        if ind:
+            if not np.array_equal(env, products["env"][n].cpu().numpy()):
+                raise AssertionError(f"hand-off env_pre of {name} differs")
+            envs += 1
+    if not envs:
+        raise AssertionError("no env_pre file in the first batch")
+    return checked, envs, len(np_batch["name"])
+
+
 def cell_export(ctx, smi):
-    """``output_brdf_light`` at cascade 0 over the TRAIN split on phase 9's
-    checkpoints: seven files an image.  Returns its launches."""
-    root = ctx["roots"]["openrooms"]
+    """cli-export: ``output_brdf_light`` at cascade 0 over the TRAIN split
+    on phase 9's checkpoints, seven files an image through the port's
+    HDF5 codec; the first batch's files read back bit-equal to the
+    products in memory; the codec's round trip and times on the host.
+    Returns its launches."""
     t0 = time.perf_counter()
-    _, got = launch_delta(lambda: cli_output_brdf_light.main(cli_args(
-        root, os.path.join(ctx["tmp"], "unused"), "--brdfExperiment",
-        ctx["brdf_exp"], "--lightExperiment", ctx["light_exp"],
-        "--batchSize", 4, *THREADS)))
+    _, got = launch_delta(lambda: cli_output_brdf_light.main(
+        export_args(ctx)))
+    seconds = time.perf_counter() - t0
     n = FIXTURE_IMAGES // 4
     expect_launches("output_brdf_light", got, render_sg_fwd=n,
                     sg_envmap_fwd=n)
-    log(f"[cli-export] output_brdf_light c0, {FIXTURE_IMAGES} images: "
-        f"{time.perf_counter() - t0:.1f} s; launches {got}; {smi}")
+    root = ctx["roots"]["openrooms"]
+    files = [os.path.join(d, f) for d, _, fs in os.walk(root) for f in fs
+             if f.endswith("_0.h5")]
+    if len(files) < 6 * FIXTURE_IMAGES:
+        raise AssertionError(f"output_brdf_light wrote {len(files)} files")
+    size = sum(os.path.getsize(f) for f in files)
+    log(f"[cli-export] output_brdf_light c0, {FIXTURE_IMAGES} images at B=4: "
+        f"{seconds:.1f} s (set-up included); {len(files)} files, "
+        f"{size / 2**20:.1f} MiB; launches {got}; {smi}")
+    t0 = time.perf_counter()
+    checked, envs, b = check_handoff_files(ctx)
+    log(f"[cli-export] the first batch's files read back (load_cascade_pre "
+        f"/ load_env_pre) against normalize_cascade_pre on export_step's "
+        f"products in memory, same checkpoints and batch: {checked} maps "
+        f"and {envs} SG tensors of {b} images bit-equal "
+        f"({time.perf_counter() - t0:.1f} s)")
+    check_codec(smi)
     return got
+
+
+def cell_c1(ctx, smi):
+    """cli-c1: cascade 1 from cli-export's files, each CLI a few steps:
+    ``train_brdf`` (the 17-channel encoder reads the ``*_pre`` maps),
+    ``train_light`` and ``train_bilateral`` on its checkpoint, and
+    ``test_synthetic --stage light`` on both.  Returns the launches."""
+    root, tmp = ctx["roots"]["openrooms"], ctx["tmp"]
+    c1 = ("--cascadeLevel", 1)
+    exp = {k: os.path.join(tmp, k + "_c1") for k in ("brdf", "light", "bs")}
+    launches = dict.fromkeys(KERNELS, 0)
+    blurs = BS_CLI_STEPS * BS_TRAIN_B * (BLURS_FWD + BLURS_GRAD)
+    four = dict.fromkeys(TRAINING_KERNELS, C1_STEPS)
+    runs = (
+        # one step an epoch at B=16
+        ("train_brdf", cli_train_brdf.main, C1_STEPS, {}, cli_args(
+            root, exp["brdf"], *c1, "--batchSize", BRDF_TRAIN_B, *THREADS,
+            "--nepoch", C1_STEPS, "--previewEvery", 0, *F32)),
+        ("train_light", cli_train_light.main, C1_STEPS, four, cli_args(
+            root, exp["light"], *c1, "--batchSize", TRAIN_B, *THREADS,
+            "--nepoch", 1, "--maxSteps", C1_STEPS, "--brdfExperiment",
+            exp["brdf"], "--useKernels", *F32)),
+        ("train_bilateral", cli_train_bilateral.main, BS_CLI_STEPS,
+         {"bilateral_blur": blurs}, cli_args(
+             root, exp["bs"], *c1, "--batchSize", BS_TRAIN_B, *THREADS,
+             "--maxSteps", BS_CLI_STEPS, "--brdfExperiment", exp["brdf"],
+             "--useKernels")),
+    )
+    for name, main, steps, want, argv in runs:
+        torch.cuda.reset_peak_memory_stats()
+        with CLITimer() as timer:
+            _, got = launch_delta(lambda: main(argv))
+        finite_lines(f"{name} c1", timer, steps)
+        expect_launches(f"{name} c1", got, **want)
+        launches = {k: launches[k] + got[k] for k in KERNELS}
+        log(f"[cli-c1] {name} --cascadeLevel 1 on cli-export's files, "
+            f"{steps} steps: step ms {rounded(timer.times['step'])}, loader "
+            f"waits ms {rounded(timer.times['loader'])}, saves ms "
+            f"{rounded(timer.times['save'])}; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; "
+            + ", ".join(f"{k} {v:.6g}" for k, v in timer.lines[-1][2].items())
+            + f"; launches {got}")
+    # the TEST list names the TRAIN scene, whose files cli-export wrote
+    with open(os.path.join(root, "train.txt")) as f, \
+            open(os.path.join(root, "test.txt"), "w") as g:
+        g.write(f.read())
+    t0 = time.perf_counter()
+    means, got = launch_delta(lambda: cli_test_synthetic.main(cli_args(
+        root, os.path.join(tmp, "unused"), *c1, "--stage", "light",
+        "--testRoot", os.path.join(tmp, "test_light_c1"),
+        "--brdfExperiment", exp["brdf"], "--lightExperiment", exp["light"],
+        "--batchSize", TRAIN_B, "--maxSteps", EVAL_STEPS, *THREADS)))
+    expect_launches("test_synthetic light c1", got,
+                    render_sg_fwd=EVAL_STEPS, sg_envmap_fwd=EVAL_STEPS)
+    if not all(np.isfinite(v) for v in means.values()):
+        raise AssertionError(f"test_synthetic light c1: {means}")
+    launches = {k: launches[k] + got[k] for k in KERNELS}
+    log(f"[cli-c1] test_synthetic --stage light --cascadeLevel 1, "
+        f"{EVAL_STEPS} batches of {TRAIN_B}: "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms (set-up included); "
+        + ", ".join(f"{k} {v:.6g}" for k, v in means.items())
+        + f"; launches {got}; {smi}")
+    return launches
 
 
 def phase_clis(ctx, smi):
     """Phase 10: the other CLIs from disk, on phase 9's fixtures and
-    checkpoints.  Returns {kernel: launches} of the phase; each of the
-    four forward kernels must have launched."""
+    checkpoints, cascade 1 on the files cascade 0 exports.  Returns
+    {kernel: launches} of the phase; each of the six kernels must have
+    launched."""
     t_phase = time.perf_counter()
-    h5py_ok = probe_import("h5py").endswith("imports")
     launches = dict.fromkeys(KERNELS, 0)
 
     def add(got):
@@ -2789,19 +2924,13 @@ def phase_clis(ctx, smi):
 
     add(cell("cli-cache", cell_cache, ctx, smi))
     add(cell("cli-c0-bs", cell_bilateral, ctx, smi))
-    if h5py_ok:
-        add(cell("cli-export", cell_export, ctx, smi))
-    else:
-        log("[cli] h5py does not import here: output_brdf_light and "
-            "train_finetune_nyu --cascadeLevel 1 (whose synthetic batches "
-            "read the exported *_pre .h5 files) are not run; both refuse "
-            "at start-up without h5py")
-    add(cell("cli-ft", cell_finetune, ctx, smi, h5py_ok))
+    add(cell("cli-export", cell_export, ctx, smi))
+    add(cell("cli-c1", cell_c1, ctx, smi))
+    add(cell("cli-ft", cell_finetune, ctx, smi))
     got, real_out = cell("cli-test-real", cell_test_real, ctx, smi)
     add(got)
     add(cell("cli-eval", cell_eval, ctx, smi, real_out))
-    missing = [k for k in ("render_sg_env", "render_sg_fwd", "sg_envmap_fwd",
-                           "bilateral_blur") if not launches[k]]
+    missing = [k for k in KERNELS if not launches[k]]
     if missing:
         raise AssertionError(f"phase 10 never launched {missing}")
     log(f"[cli] phase 10: {time.perf_counter() - t_phase:.1f} s; launches "

@@ -126,16 +126,6 @@ def setup_device(opt) -> torch.device:
     return device
 
 
-def require_h5py(what: str) -> None:
-    """Fail at start-up, not after minutes of compute, where ``what``
-    reads or writes the hand-off's ``.h5`` files and h5py is missing."""
-    try:
-        import h5py  # noqa: F401
-    except ImportError as e:
-        raise ImportError(f"{what} reads or writes the cascade hand-off's "
-                          ".h5 files, and h5py does not import here") from e
-
-
 def default_experiment_name(opt, kind: str, offset=None,
                             cascade=None) -> str:
     """The reference checkpoint-dir naming (trainBRDF.py:66,
@@ -374,9 +364,6 @@ def run_finetune(opt, kind: str, real_ds, make_real_step) -> None:
     )
 
     check_ported(opt)
-    if opt.cascadeLevel > 0:
-        # the synthetic batches carry the cascade-0 *_pre files
-        require_h5py(f"train_finetune_{kind} --cascadeLevel 1")
     device = setup_device(opt)
     opt.experiment = opt.experiment or "check%s_cascade%d_w%d_h%d" % (
         kind.upper(), opt.cascadeLevel, opt.imWidth, opt.imHeight)

@@ -6,8 +6,8 @@ writes each image's seven products as ``*_{k}.h5`` files beside it,
 skipping files that exist (outputBRDFLight.py:195-301), through
 ``pipeline/export.py``; the SG decode and the shading run on the
 ``sg_envmap_fwd`` and ``render_sg_fwd`` kernels (``--noKernels``: their
-plain versions; a run with ``--device cpu`` needs it).  The files need
-h5py, which is checked before anything runs.
+plain versions; a run with ``--device cpu`` needs it).  The files are
+written by the port's HDF5 codec (``utils/h5.py``), h5py's bytes.
 
 Usage: python -m inverserenderingofindoorscene_torch.cli.output_brdf_light \
     --dataRoot ... [--mode TEST]
@@ -72,7 +72,6 @@ def load_frozen_light(opt, generator, device) -> LightNets:
 def main(argv=None):
     opt = parse_args(argv)
     common.check_ported(opt)
-    common.require_h5py("output_brdf_light")
     device = common.setup_device(opt)
     gen = common.pin_seeds(opt.seed)
 

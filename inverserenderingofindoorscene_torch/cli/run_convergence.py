@@ -15,9 +15,9 @@ their ratio), init-vs-trained test metrics and wall times, into
 JAX record's ``config``: ``device`` (the card's name and power limit as
 ``nvidia-smi`` gives them, or ``cpu``), ``torch`` (its version), and a
 ``not_run`` map of every stage of the full recipe this run did not
-record, with the reason.  A leg asked for whose dependency does not
-import here (the cascade-1 legs read and write the hand-off's ``.h5``
-files through h5py) is refused at start-up.
+record, with the reason.  The cascade-1 legs read and write the
+hand-off's ``.h5`` files through the port's own HDF5 codec
+(``utils/h5.py``), so they run wherever the rest does.
 
 Usage:
   python -m inverserenderingofindoorscene_torch.cli.run_convergence \\
@@ -49,8 +49,6 @@ import torch
 STAGES = ("brdf", "light", "bilateral", "brdf1", "light1", "light_b20",
           "bilateral_mid", "finetune_nyu", "finetune_iiw", "finetune_nyu1",
           "finetune_iiw1", "capstone")
-CASCADE1 = ("brdf1", "light1", "finetune_nyu1", "finetune_iiw1")
-NO_H5PY = "h5py does not import here"
 
 
 def log(m):
@@ -392,14 +390,6 @@ def _no_kernels(opt):
     return ["--noKernels"] if opt.device == "cpu" else []
 
 
-def _h5py_imports() -> bool:
-    try:
-        import h5py  # noqa: F401
-    except ImportError:
-        return False
-    return True
-
-
 def device_name(device: str) -> str:
     """The card's name and power limit, as ``nvidia-smi --query-gpu=
     name,power.limit --format=csv,noheader`` prints them, or ``cpu``."""
@@ -415,7 +405,7 @@ def device_name(device: str) -> str:
         return torch.cuda.get_device_name(torch.device(device))
 
 
-def not_run(opt, summary, h5py_ok):
+def not_run(opt, summary):
     """{stage: reason} for each stage of the full recipe this run did not
     record."""
     asked = {
@@ -431,9 +421,7 @@ def not_run(opt, summary, h5py_ok):
     for name in STAGES:
         if name in summary["stages"]:
             continue
-        if name in CASCADE1 and not h5py_ok:
-            out[name] = NO_H5PY
-        elif not asked[name]:
+        if not asked[name]:
             out[name] = "not asked for"
         else:
             out[name] = "its prerequisite stage did not run"
@@ -535,8 +523,7 @@ def parse_args(argv=None):
     ap.add_argument("--cascade1", action="store_true",
                     help="after the cascade-0 stages: export the "
                          "intermediates (output_brdf_light, both splits) "
-                         "and run the cascade-1 BRDF + light legs; needs "
-                         "h5py")
+                         "and run the cascade-1 BRDF + light legs")
     ap.add_argument("--brdf1Epochs", type=int, default=30)
     ap.add_argument("--light1Epochs", type=int, default=10)
     ap.add_argument("--finetuneNYU", action="store_true",
@@ -592,14 +579,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     opt = parse_args(argv)
-    h5py_ok = _h5py_imports()
-    if opt.cascade1 or opt.finetuneNYU1 or opt.finetuneIIW1:
-        from inverserenderingofindoorscene_torch.cli.common import (
-            require_h5py,
-        )
-
-        require_h5py("run_convergence --cascade1 (output_brdf_light, "
-                     "brdf1 / light1, --finetuneNYU1 / --finetuneIIW1)")
     os.makedirs(opt.out, exist_ok=True)
 
     from inverserenderingofindoorscene_torch.cli import (
@@ -653,8 +632,8 @@ def main(argv=None):
         merged = dict(prior)
         merged.update(summary["stages"])
         blob = json.dumps({**summary, "stages": merged,
-                           "not_run": not_run(opt, {"stages": merged},
-                                              h5py_ok)}, indent=1)
+                           "not_run": not_run(opt, {"stages": merged})},
+                          indent=1)
         tmp = sj + ".tmp"
         with open(tmp, "w") as f:
             f.write(blob)
@@ -884,7 +863,7 @@ def main(argv=None):
             for k in tk)
         log(f"| {name} | {c['steps']} | {c['first']:.4g} -> {c['last']:.4g} "
             f"({c['ratio']:.1f}x) | {tt} |")
-    summary["not_run"] = not_run(opt, summary, h5py_ok)
+    summary["not_run"] = not_run(opt, summary)
     log(f"not run: {summary['not_run']}")
     log(f"summary: {sj}")
     if opt.gate:

@@ -134,8 +134,6 @@ def _latest(opt, exp, kind, stage, **kw):
 def main(argv=None):
     opt = parse_args(argv)
     common.check_ported(opt)
-    if opt.cascadeLevel > 0:
-        common.require_h5py("test_synthetic --cascadeLevel 1")
     device = common.setup_device(opt)
     gen = common.pin_seeds(opt.seed)
     brdf_nets = load_frozen_brdf(opt, gen, device).to(device).eval()

@@ -50,8 +50,6 @@ def parse_args(argv=None):
 def main(argv=None):
     opt = parse_args(argv)
     common.check_ported(opt)
-    if opt.cascadeLevel > 0:
-        common.require_h5py("train_bilateral --cascadeLevel 1")
     device = common.setup_device(opt)
     exp = common.experiment_dir(opt, "bs")
     gen = common.pin_seeds(opt.seed)

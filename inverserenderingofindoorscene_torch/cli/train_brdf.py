@@ -58,8 +58,6 @@ def preview(exp, epoch, j, nets, batch):
 def main(argv=None):
     opt = parse_args(argv)
     common.check_ported(opt)
-    if opt.cascadeLevel > 0:
-        common.require_h5py("train_brdf --cascadeLevel 1")
     device = common.setup_device(opt)
     exp = common.experiment_dir(opt, "brdf")
     gen = common.pin_seeds(opt.seed)

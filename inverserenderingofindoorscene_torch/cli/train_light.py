@@ -62,8 +62,6 @@ def load_frozen_brdf(opt, generator, device) -> BRDFNets:
 def main(argv=None):
     opt = parse_args(argv)
     common.check_ported(opt)
-    if opt.cascadeLevel > 0:
-        common.require_h5py("train_light --cascadeLevel 1")
     device = common.setup_device(opt)
     exp = common.experiment_dir(opt, "light")
     gen = common.pin_seeds(opt.seed)

@@ -27,9 +27,10 @@ It reproduces every transform of the reference ``BatchLoader``
 
 Augmentation draws come from a ``(seed, epoch, item)``-keyed stream, so
 any worker gives the same item and a skipped batch prefix reproduces the
-data position.  cv2, PIL, scipy and h5py are imported where a file is
-read; nothing here touches torch or CUDA, so spawned loader workers start
-clean.
+data position.  cv2, PIL and scipy are imported where a file is read;
+the hand-off's ``.h5`` files are read by the port's HDF5 codec
+(``utils/h5.py``, through ``utils/io.read_h5``).  Nothing here touches
+torch or CUDA, so spawned loader workers start clean.
 """
 
 from __future__ import annotations
@@ -432,7 +433,8 @@ class BatchIterator:
     136-137).
 
     ``mode="thread"``: worker threads, enough where an item's cost is
-    GIL-releasing work (the native envmap decode, cv2, h5py).
+    GIL-releasing work (the native envmap decode, cv2, the hand-off
+    files' LZF).
     ``mode="process"``: a persistent pool of spawned processes (items
     return by pickle), which wins where an item's cost is GIL-held numpy
     and PIL work, as in the BRDF stage.  A dataset with ``get_batch``

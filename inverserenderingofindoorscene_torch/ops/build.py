@@ -5,8 +5,10 @@ into a shared library with a plain C interface, loaded with ``ctypes``.
 Libraries go to ``build/torch_kernels/`` at the root of the checkout,
 named by a hash of the source, the shared ``csrc/*.cuh`` headers and the
 flags, so a checkout builds its own kernels on first use and a changed
-source or header is rebuilt.  Nothing here runs at import time.  The
-launch helpers at the end are shared by every kernel wrapper.
+source or header is rebuilt.  ``csrc/*.cpp`` sources are host code (the
+hand-off files' LZF), built the same way with ``g++`` (``load_host``).
+Nothing here runs at import time.  The launch helpers at the end are
+shared by every kernel wrapper.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 SOURCES = ("sg_render_env", "sg_render", "sg_envmap", "bilateral_blur")
+GXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
 
 
 def _nvcc() -> str:
@@ -89,6 +92,31 @@ def load(name: str) -> ctypes.CDLL:
     """Build (if needed) and load the library of ``csrc/<name>.cu``."""
     build_all((name,))
     return ctypes.CDLL(str(library_path(name)))
+
+
+def host_library_path(name: str) -> Path:
+    """Where the host library built from ``csrc/<name>.cpp`` lives."""
+    digest = hashlib.sha256((CSRC / f"{name}.cpp").read_bytes()
+                            + " ".join(GXX_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+@functools.lru_cache(maxsize=None)
+def load_host(name: str) -> ctypes.CDLL:
+    """Build (if needed) with ``g++`` and load the host library of
+    ``csrc/<name>.cpp``.  A per-process temp file and an atomic rename let
+    loader processes build it at once."""
+    target = host_library_path(name)
+    if not target.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = f"{target}.tmp.{os.getpid()}"
+        proc = subprocess.run(
+            ["g++", *GXX_FLAGS, "-o", tmp, str(CSRC / f"{name}.cpp")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed for {name}:\n{proc.stdout}")
+        os.replace(tmp, target)
+    return ctypes.CDLL(str(target))
 
 
 def on_card(fn: str, x) -> bool:

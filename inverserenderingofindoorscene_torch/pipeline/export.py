@@ -6,8 +6,9 @@ reference's outputBRDFLight): :func:`export_step` runs ``light_step``
 without gradients and returns the seven products, :func:`write_products`
 writes them as per-image ``*_{cascade}.h5`` files (``utils/io.py``: CHW
 ``data`` dataset, LZF), under the reference's names (``_STEMS``, the
-reader's ``data/openrooms.STEMS``), skipping files that exist.
-``data/openrooms.py`` reads them back.
+reader's ``data/openrooms.STEMS``), skipping files that exist.  The
+files are written and read by the port's HDF5 codec (``utils/h5.py``),
+byte for byte what h5py writes; ``data/openrooms.py`` reads them back.
 """
 
 from __future__ import annotations

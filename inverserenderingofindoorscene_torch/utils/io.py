@@ -5,10 +5,11 @@ utils.py): sRGB conversion, the PNG writer and the whole-batch grid of
 the training previews, the envmap mosaic and SG shading images of the
 test CLIs, and the hand-off's ``.h5`` files, one
 LZF-compressed ``data`` dataset a file, stored CHW as the reference
-writes it.  For the same array the two packages write the same bytes, so
-either package's cascade-0 products feed the other's cascade 1.  PIL and
-h5py are imported where a file is written or read, so the rest of the
-port runs without them.
+writes it.  The files go through the port's own HDF5 codec
+(``utils/h5.py``), which writes h5py's bytes: for the same array the two
+packages write the same file, so either package's cascade-0 products feed
+the other's cascade 1.  PIL is imported where a PNG is written, so the
+rest of the port runs without it.
 """
 
 from __future__ import annotations
@@ -85,22 +86,20 @@ def write_image_grid(imgs: np.ndarray, path: str, gamma: bool = False, **kw):
 def write_h5(arr: np.ndarray, path: str, chw_from_hwc: bool = True) -> None:
     """Write ``arr`` as the ``data`` dataset of a new file at ``path``, LZF
     compressed; an [H,W,C] array is stored [C,H,W] (``chw_from_hwc``)."""
-    import h5py
+    from inverserenderingofindoorscene_torch.utils import h5
 
     arr = np.asarray(arr)
     if chw_from_hwc and arr.ndim == 3:
         arr = arr.transpose(2, 0, 1)
-    with h5py.File(path, "w") as hf:
-        hf.create_dataset("data", data=arr, compression="lzf")
+    h5.write(path, arr)
 
 
 def read_h5(path: str, hwc_from_chw: bool = True) -> np.ndarray:
     """The ``data`` dataset of ``path``; a 3-d one comes back [H,W,C]
     (``hwc_from_chw``)."""
-    import h5py
+    from inverserenderingofindoorscene_torch.utils import h5
 
-    with h5py.File(path, "r") as hf:
-        arr = np.array(hf["data"])
+    arr = h5.read(path)
     if hwc_from_chw and arr.ndim == 3:
         arr = arr.transpose(1, 2, 0)
     return arr

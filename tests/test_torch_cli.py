@@ -210,7 +210,6 @@ def test_train_brdf_cascade1_on_exported_products(dataset, work):
     """Cascade-0 products written by ``pipeline/export.write_products``
     beside the images feed ``train_brdf --cascadeLevel 1``: the loader
     reads the ``*_pre`` maps, the 17-channel encoder trains a step."""
-    pytest.importorskip("h5py")
     root = str(work / "c1")
     shutil.copytree(dataset, root)
     ds = OpenRoomsDataset(root, im_hw=IM_HW, env_rc=ENV_RC, is_light=True,

@@ -70,7 +70,6 @@ def test_finetune_nyu_cascade1_inline_synthesis(tree, work, monkeypatch):
     files that ``output_brdf_light`` wrote, and each NYU batch gets its ``*_pre`` maps from the frozen
     cascade-0 stack (``--brdf0Experiment`` / ``--light0Experiment``); a
     missing cascade-0 checkpoint is an error, not random nets."""
-    pytest.importorskip("h5py")
     root = str(work / "c1")
     shutil.copytree(tree["root"], root)
     output_brdf_light.main(_args(root, [

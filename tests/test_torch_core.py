@@ -21,7 +21,7 @@ from inverserenderingofindoorscene_tpu.core import scale as jscale
 from inverserenderingofindoorscene_tpu.core import sg as jsg
 from inverserenderingofindoorscene_tpu.core import sphere as jsphere
 from inverserenderingofindoorscene_torch.core import brdf, camera, imageops
-from inverserenderingofindoorscene_torch.core import scale, sg, sphere
+from inverserenderingofindoorscene_torch.core import scale, sg, sphere, tables
 
 import oracle_np
 from test_torch_sg_render import assert_close_naming_side
@@ -51,6 +51,38 @@ def test_hemisphere_bit_equal(eh, ew):
                                   jsphere.hemisphere_weights(eh, ew))
 
 
+def diagnose_sg_to_envmap(got, oracle, inputs):
+    """What a failure of the comparison below saw (ROADMAP C22, a port
+    result 4e-4 off once in a six-worker run): the directions and pixels
+    that moved, the port's envmap recomputed in the same process, the cached hemisphere table against a
+    fresh float32 cast of the numpy grid, the inputs against a fresh draw,
+    and the process's torch threads and CPU capability."""
+    again = sg.sg_to_envmap(*map(torch.from_numpy, inputs)).numpy()
+    table = tables.hemisphere(8, 16, torch.float32, torch.device("cpu"))
+    grid = torch.as_tensor(sphere.hemisphere_dirs(8, 16),
+                           dtype=torch.float32)
+    fresh = sg_inputs(np.random.RandomState(0))
+    far = np.abs(np.float64(got) - oracle) > ATOL
+    return "\n".join([
+        f"directions with an element beyond atol: "
+        f"{np.unique(np.nonzero(far)[-2]).tolist()}; pixels: "
+        f"{len({tuple(p) for p in np.argwhere(far)[:, :-2]})}",
+        f"recomputed here: max |again - float64| "
+        f"{np.abs(np.float64(again) - oracle).max():.3g}, max |again - got| "
+        f"{np.abs(again - got).max():.3g}",
+        f"cached hemisphere table: max |table - fresh cast| "
+        f"{(table - grid).abs().max().item():.3g}; numpy grid against the "
+        f"oracle's: {np.abs(sphere.hemisphere_dirs(8, 16) - oracle_np.hemisphere_dirs_np()).max():.3g}",
+        "inputs against a fresh draw: " + ", ".join(
+            f"{n} {np.abs(a - b).max():.3g}"
+            for n, a, b in zip(("axis", "lamb", "weight"), inputs, fresh)),
+        f"torch {torch.__version__}: threads {torch.get_num_threads()}, "
+        f"inter-op {torch.get_num_interop_threads()}, CPU capability "
+        f"{torch.backends.cpu.get_cpu_capability()}, float32 matmul "
+        f"precision {torch.get_float32_matmul_precision()}",
+    ])
+
+
 def test_sg_to_envmap_matches_jax():
     ax, lamb, wgt = sg_inputs(np.random.RandomState(0))
     want = np.asarray(jsg.sg_to_envmap(jnp.asarray(ax), jnp.asarray(lamb),
@@ -59,9 +91,13 @@ def test_sg_to_envmap_matches_jax():
                           torch.from_numpy(wgt)).numpy()
     oracle = oracle_np.sg_to_envmap_np(*(np.float64(x) for x in (ax, lamb,
                                                                   wgt)))
-    assert_close_naming_side(
-        lambda g, w: np.testing.assert_allclose(g[0], w[0], atol=ATOL),
-        [got], [want], [oracle], ["envmap"])
+    try:
+        assert_close_naming_side(
+            lambda g, w: np.testing.assert_allclose(g[0], w[0], atol=ATOL),
+            [got], [want], [oracle], ["envmap"])
+    except AssertionError as e:
+        raise AssertionError(f"{e}\n" + diagnose_sg_to_envmap(
+            got, oracle, (ax, lamb, wgt))) from None
 
 
 def test_unsquash_and_flat_split_match_jax():

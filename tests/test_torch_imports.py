@@ -1,12 +1,13 @@
-"""The port and chip_smoke.py load neither JAX nor the JAX package.
+"""The port and chip_smoke.py load neither JAX, the JAX package nor h5py.
 
 The machine with the card has no JAX, so a fresh interpreter imports
 every module of ``inverserenderingofindoorscene_torch`` (the training
 modules, the loaders, the native decoder's bindings and the CLIs
 included) and ``chip_smoke`` (whose imports are all at module level) and
-then checks ``sys.modules``.  Imports inside functions (the loaders' cv2,
-PIL and h5py, the fixture writer's oracle) are read from the sources:
-none names JAX, the JAX package or the repository's ``tests``.
+then checks ``sys.modules``.  Imports inside functions (the loaders' cv2
+and PIL, the fixture writer's oracle) are read from the sources: none
+names JAX, the JAX package, h5py (the hand-off's files go through the
+port's ``utils/h5.py``) or the repository's ``tests``.
 """
 
 import ast
@@ -34,12 +35,12 @@ need = {"data.synthetic", "losses.masked", "train.steps", "pipeline.light",
         "data.cache", "cli.build_cache", "cli.train_bilateral",
         "cli.train_finetune_iiw", "cli.train_finetune_nyu",
         "cli.output_brdf_light", "cli.test_synthetic", "cli.test_real",
-        "cli.compare", "cli.run_convergence", "parallel.mesh",
+        "cli.compare", "cli.run_convergence", "parallel.mesh", "utils.h5",
         "parallel.multihost", "parallel.collectives", "parallel.dryrun"}
 assert {port.__name__ + "." + n for n in need} <= set(names)
 import chip_smoke
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "tests",
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "tests", "h5py",
                                     "inverserenderingofindoorscene_tpu"))
 print(len(names), bad)
 """
@@ -55,7 +56,7 @@ def test_port_and_chip_smoke_import_no_jax():
     assert loaded == "[]", loaded
 
 
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tests",
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tests", "h5py",
              "inverserenderingofindoorscene_tpu")
 
 
