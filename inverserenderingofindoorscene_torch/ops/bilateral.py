@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from inverserenderingofindoorscene_torch.ops import build
+from inverserenderingofindoorscene_torch.utils.spans import span
 
 # RGB -> YUV matrix + offset of the reference (BilateralGrid.py:13-22).
 RGB_TO_YUV = np.array(
@@ -234,9 +235,10 @@ def bilateral_blur(grid: BilateralGrid, y: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(y)
     if y.numel() == 0:
         return out
-    build.raise_on("bilateral_blur", _lib().bilateral_blur_f32(
-        y.data_ptr(), nbr.data_ptr(), out.data_ptr(), v, y.shape[1],
-        build.stream(y.device)))
+    with span("kernel.bilateral_blur"):
+        build.raise_on("bilateral_blur", _lib().bilateral_blur_f32(
+            y.data_ptr(), nbr.data_ptr(), out.data_ptr(), v, y.shape[1],
+            build.stream(y.device)))
     bilateral_blur.launches += 1
     return out
 

@@ -41,6 +41,7 @@ from inverserenderingofindoorscene_torch.core.sphere import (
 )
 from inverserenderingofindoorscene_torch.core.tables import hemisphere
 from inverserenderingofindoorscene_torch.ops import build
+from inverserenderingofindoorscene_torch.utils.spans import span
 
 # dynamic shared memory a block may take on Hopper with the opt-in
 # attribute (227 KB; the render backward's and the walk's launches opt in
@@ -228,9 +229,10 @@ def _render_sg_env_launch(albedo, normal, rough, axis, lamb, weight,
         return diffuse, specular, env
     ptrs = [x.data_ptr()
             for x in (albedo, normal, rough, axis, lamb, weight, *tables)]
-    build.raise_on("sg_render_env", lib.sg_render_env_f32(
-        *ptrs, diffuse.data_ptr(), specular.data_ptr(),
-        env.data_ptr(), n, h * w, k, d, float(f0), build.stream(dev)))
+    with span("kernel.render_sg_env"):
+        build.raise_on("sg_render_env", lib.sg_render_env_f32(
+            *ptrs, diffuse.data_ptr(), specular.data_ptr(),
+            env.data_ptr(), n, h * w, k, d, float(f0), build.stream(dev)))
     render_sg_env.launches += 1
     return diffuse, specular, env
 
@@ -303,11 +305,12 @@ def sg_envmap_fwd(axis, lamb, weight, env_height=8, env_width=16):
                       device=dev)
     if n == 0:
         return env
-    build.raise_on("sg_envmap_fwd", lib.sg_envmap_fwd_f32(
-        axis.data_ptr(), lamb.data_ptr(), weight.data_ptr(),
-        _dir_consts(env_height, env_width, dev).data_ptr(), env.data_ptr(),
-        n, k, d, build.stream(dev),
-    ))
+    consts = _dir_consts(env_height, env_width, dev)
+    with span("kernel.sg_envmap_fwd"):
+        build.raise_on("sg_envmap_fwd", lib.sg_envmap_fwd_f32(
+            axis.data_ptr(), lamb.data_ptr(), weight.data_ptr(),
+            consts.data_ptr(), env.data_ptr(), n, k, d, build.stream(dev),
+        ))
     sg_envmap_fwd.launches += 1
     return env
 
@@ -329,12 +332,14 @@ def sg_envmap_bwd(axis, lamb, weight, g_env, env_height=8, env_width=16):
     if n == 0:
         return d_axis, d_lamb, d_weight
     dev = axis.device
-    build.raise_on("sg_envmap_bwd", lib.sg_envmap_bwd_f32(
-        axis.data_ptr(), lamb.data_ptr(), weight.data_ptr(),
-        _dir_consts(env_height, env_width, dev).data_ptr(), g_env.data_ptr(),
-        d_axis.data_ptr(), d_lamb.data_ptr(), d_weight.data_ptr(),
-        n, k, d, build.stream(dev),
-    ))
+    consts = _dir_consts(env_height, env_width, dev)
+    with span("kernel.sg_envmap_bwd"):
+        build.raise_on("sg_envmap_bwd", lib.sg_envmap_bwd_f32(
+            axis.data_ptr(), lamb.data_ptr(), weight.data_ptr(),
+            consts.data_ptr(), g_env.data_ptr(), d_axis.data_ptr(),
+            d_lamb.data_ptr(), d_weight.data_ptr(), n, k, d,
+            build.stream(dev),
+        ))
     sg_envmap_bwd.launches += 1
     return d_axis, d_lamb, d_weight
 
@@ -623,10 +628,11 @@ def render_sg_fwd(albedo, normal, rough, axis, lamb, weight, fov_deg=57.0,
         return diffuse, specular
     ptrs = [x.data_ptr()
             for x in (albedo, normal, rough, axis, lamb, weight, *tables)]
-    build.raise_on("render_sg_fwd", lib.render_sg_fwd_f32(
-        *ptrs, diffuse.data_ptr(), specular.data_ptr(), n, h * w, k, d,
-        float(f0), build.stream(albedo.device),
-    ))
+    with span("kernel.render_sg_fwd"):
+        build.raise_on("render_sg_fwd", lib.render_sg_fwd_f32(
+            *ptrs, diffuse.data_ptr(), specular.data_ptr(), n, h * w, k, d,
+            float(f0), build.stream(albedo.device),
+        ))
     render_sg_fwd.launches += 1
     return diffuse, specular
 
@@ -660,13 +666,14 @@ def render_sg_bwd(albedo, normal, rough, axis, lamb, weight, grad_diffuse,
     n = b * h * w
     if n == 0:
         return tuple(grads)
-    build.raise_on("render_sg_bwd", lib.render_sg_bwd_f32(
-        albedo.data_ptr(), normal.data_ptr(), rough.data_ptr(),
-        axis.data_ptr(), lamb.data_ptr(), weight.data_ptr(),
-        view.data_ptr(), dirs.data_ptr(), grad_diffuse.data_ptr(),
-        grad_specular.data_ptr(), *(g.data_ptr() for g in grads),
-        n, h * w, k, d, float(f0), build.stream(albedo.device),
-    ))
+    with span("kernel.render_sg_bwd"):
+        build.raise_on("render_sg_bwd", lib.render_sg_bwd_f32(
+            albedo.data_ptr(), normal.data_ptr(), rough.data_ptr(),
+            axis.data_ptr(), lamb.data_ptr(), weight.data_ptr(),
+            view.data_ptr(), dirs.data_ptr(), grad_diffuse.data_ptr(),
+            grad_specular.data_ptr(), *(g.data_ptr() for g in grads),
+            n, h * w, k, d, float(f0), build.stream(albedo.device),
+        ))
     render_sg_bwd.launches += 1
     return tuple(grads)
 

@@ -52,6 +52,7 @@ from inverserenderingofindoorscene_torch.pipeline.finetune import (
     nyu_step,
 )
 from inverserenderingofindoorscene_torch.pipeline.light import light_step
+from inverserenderingofindoorscene_torch.utils.spans import STEP, span
 from inverserenderingofindoorscene_torch.utils.weights import (
     brdf_adam_state_dict,
     light_adam_state_dict,
@@ -87,6 +88,35 @@ def position_schedule(scheduler, count: int) -> None:
                                  scheduler.base_lrs, scheduler.lr_lambdas):
         group["lr"] = base * rate(count)
     scheduler._last_lr = [g["lr"] for g in scheduler.optimizer.param_groups]
+
+
+def _update(step, nets, batch: dict, fill_grads: bool = False):
+    """One update of ``step``'s trained module ``nets``: the loss
+    (``step.loss(batch)``, whose first two items are the total and the
+    dict of its parts), the gradients (with ``fill_grads`` a zero one for
+    each parameter the loss does not reach) summed over the step's group,
+    then Adam and the schedule.  Returns (metrics, the loss's items): the
+    parts and ``total``, detached.  Each stage is a span
+    (``utils/spans.py``) timed on ``step.device``: ``train.forward``,
+    ``train.backward``, ``train.optimizer``."""
+    step.optimizer.zero_grad(set_to_none=True)
+    with span("train.forward", step.device):
+        out = step.loss(batch)
+    total = out[0]
+    with span("train.backward", step.device):
+        total.backward()
+        if fill_grads:
+            for p in nets.parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        sum_grads_(nets.parameters(), step.group)
+    with span("train.optimizer", step.device):
+        step.optimizer.step()
+        if step.scheduler is not None:
+            step.scheduler.step()
+    metrics = {k: v.detach() for k, v in out[1].items()}
+    metrics["total"] = total.detach()
+    return metrics, out
 
 
 class BRDFTrainStep:
@@ -138,22 +168,11 @@ class BRDFTrainStep:
         position_schedule(self.scheduler, count)
 
     def __call__(self, batch: dict) -> dict:
-        self.optimizer.zero_grad(set_to_none=True)
-        total, errors = self.loss(batch)
-        total.backward()
-        # a net the loss does not reach (the IIW loss reads albedo only)
-        # takes a zero gradient: optax's Adam decays its moments and moves
-        # it, torch's would skip a parameter without one
-        for p in self.brdf_nets.parameters():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        sum_grads_(self.brdf_nets.parameters(), self.group)
-        self.optimizer.step()
-        if self.scheduler is not None:
-            self.scheduler.step()
-        metrics = {k: v.detach() for k, v in errors.items()}
-        metrics["total"] = total.detach()
-        return metrics
+        with span(STEP, self.device):
+            # a net the loss does not reach (the IIW loss reads albedo
+            # only) takes a zero gradient: optax's Adam decays its moments
+            # and moves it, torch's would skip a parameter without one
+            return _update(self, self.brdf_nets, batch, fill_grads=True)[0]
 
 
 class IIWTrainStep(BRDFTrainStep):
@@ -251,16 +270,8 @@ class LightTrainStep:
         position_schedule(self.scheduler, count)
 
     def __call__(self, batch: dict) -> dict:
-        self.optimizer.zero_grad(set_to_none=True)
-        total, losses = self.loss(batch)
-        total.backward()
-        sum_grads_(self.light_nets.parameters(), self.group)
-        self.optimizer.step()
-        if self.scheduler is not None:
-            self.scheduler.step()
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["total"] = total.detach()
-        return metrics
+        with span(STEP, self.device):
+            return _update(self, self.light_nets, batch)[0]
 
 
 class BilateralTrainStep:
@@ -302,23 +313,16 @@ class BilateralTrainStep:
         return total, losses, aux["grid_stats"]
 
     def __call__(self, batch: dict) -> dict:
-        self.optimizer.zero_grad(set_to_none=True)
-        total, losses, stats = self.loss(batch)
-        total.backward()
-        sum_grads_(self.bs_nets.parameters(), self.group)
-        self.optimizer.step()
-        if self.scheduler is not None:
-            self.scheduler.step()
-        metrics = {k: v.detach() for k, v in losses.items()}
-        metrics["total"] = total.detach()
-        for mode, st in stats.items():
-            nvert = st["nvert"].max()
-            if self.group is not None:
-                # on the step's device: NCCL takes no CPU tensor
-                nvert = pmax(nvert.to(self.device), self.group)
-            metrics[f"nvert_{mode}"] = nvert
-        metrics["nvert_max"] = max(metrics[f"nvert_{m}"] for m in stats)
-        return metrics
+        with span(STEP, self.device):
+            metrics, (_, _, stats) = _update(self, self.bs_nets, batch)
+            for mode, st in stats.items():
+                nvert = st["nvert"].max()
+                if self.group is not None:
+                    # on the step's device: NCCL takes no CPU tensor
+                    nvert = pmax(nvert.to(self.device), self.group)
+                metrics[f"nvert_{mode}"] = nvert
+            metrics["nvert_max"] = max(metrics[f"nvert_{m}"] for m in stats)
+            return metrics
 
 
 # the JAX package's names: a call builds the step
